@@ -1,0 +1,24 @@
+"""ceph_tpu_torch — the PyTorch/CUDA port of ceph_tpu's device data path.
+
+A second package beside the JAX package `ceph_tpu`, which stays the
+reference: each module here is held byte for byte against the module of
+the same path there. The port imports `torch` and never `jax`, and nothing
+of `ceph_tpu`; what it needs from the reference's jax-free modules it keeps
+as its own copy.
+
+Every entry point takes a `device` (default "cuda") and raises when no
+card is present unless the caller asks for the CPU, where each kernel's
+wrapper runs the kernel's plain PyTorch version instead.
+
+Subpackages (same layout as ceph_tpu):
+  ec      erasure-code plugin layer: interface, registry, jerasure
+          matrix techniques, the `cuda` plugin
+  ops     device kernels: GF(2^8) bit-matrix apply (K1), crc32c over
+          fixed-size blocks (K2), both hand-written CUDA for sm_90a
+  osd     ECUtil stripe codec (encode / decode_concat / decode_shards)
+  utils   Checksummer (BlueStore per-block checksums)
+  native  ctypes loader for the repo's host C++ codec and crc32c
+  tools   ec_benchmark
+"""
+
+__version__ = "0.1.0"

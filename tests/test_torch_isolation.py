@@ -1,0 +1,118 @@
+"""The PyTorch port stands alone: it imports neither jax nor any module of
+the JAX package `ceph_tpu`, and its entry points refuse to run on a
+machine without CUDA unless the caller asks for the CPU."""
+import ast
+import os
+import pkgutil
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+import ceph_tpu_torch
+
+PKG_DIR = os.path.dirname(ceph_tpu_torch.__file__)
+REPO = os.path.dirname(PKG_DIR)
+
+
+def _port_modules() -> list[str]:
+    names = ["ceph_tpu_torch"]
+    for info in pkgutil.walk_packages([PKG_DIR], prefix="ceph_tpu_torch."):
+        names.append(info.name)
+    return sorted(names)
+
+
+def _is_reference(name: str) -> bool:
+    # "ceph_tpu_torch".startswith("ceph_tpu") is True: match exactly
+    return name == "ceph_tpu" or name.startswith("ceph_tpu.")
+
+
+def test_every_module_is_listed():
+    mods = _port_modules()
+    for expected in ("ceph_tpu_torch.device", "ceph_tpu_torch.convert",
+                     "ceph_tpu_torch.ops.rs_codec", "ceph_tpu_torch.ops.crc32c",
+                     "ceph_tpu_torch.ops._build", "ceph_tpu_torch.ec.plugin_cuda",
+                     "ceph_tpu_torch.ec.plugin_jerasure",
+                     "ceph_tpu_torch.osd.ec_util",
+                     "ceph_tpu_torch.utils.checksummer",
+                     "ceph_tpu_torch.native.ec_native",
+                     "ceph_tpu_torch.tools.ec_benchmark"):
+        assert expected in mods
+
+
+def test_imports_without_jax_or_reference():
+    """Every port module imports with jax blocked, and afterwards no
+    module named ceph_tpu or ceph_tpu.* is loaded."""
+    script = (
+        "import sys, importlib\n"
+        "sys.modules['jax'] = None\n"
+        "sys.modules['jaxlib'] = None\n"
+        f"for name in {_port_modules()!r}:\n"
+        "    importlib.import_module(name)\n"
+        "bad = sorted(n for n in sys.modules if n == 'ceph_tpu' or "
+        "n.startswith('ceph_tpu.') or n == 'jax' and sys.modules[n] is not None)\n"
+        "print('LOADED', bad)\n"
+        "assert not bad, bad\n")
+    env = dict(os.environ, PYTHONPATH=REPO)
+    res = subprocess.run([sys.executable, "-c", script], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stderr[-2000:]
+    assert "LOADED []" in res.stdout
+
+
+@pytest.mark.parametrize("path", sorted(
+    os.path.relpath(os.path.join(d, f), REPO)
+    for d, _, files in os.walk(PKG_DIR) for f in files if f.endswith(".py")))
+def test_source_has_no_jax_or_reference_import(path):
+    tree = ast.parse(open(os.path.join(REPO, path)).read(), path)
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names = [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom):
+            names = [node.module or ""] if node.level == 0 else []
+        else:
+            continue
+        for name in names:
+            assert not (name == "jax" or name.startswith("jax.")
+                        or name == "jaxlib" or _is_reference(name)), \
+                f"{path}:{node.lineno} imports {name}"
+
+
+def _entry_points():
+    from ceph_tpu_torch import device
+    from ceph_tpu_torch.ec import gf256
+    from ceph_tpu_torch.ec.registry import factory
+    from ceph_tpu_torch.ops import crc32c, rs_codec
+    from ceph_tpu_torch.tools import ec_benchmark
+    from ceph_tpu_torch.utils.checksummer import Checksummer
+    M = gf256.reed_sol_van_matrix(4, 2)
+    data = np.zeros((4, 128), dtype=np.uint8)
+    return {
+        "resolve": lambda: device.resolve(),
+        "MatrixCodec.apply": lambda: rs_codec.MatrixCodec.get(M).apply(data),
+        "Crc32cDevice": lambda: crc32c.Crc32cDevice(4096),
+        "plugin cuda": lambda: factory("cuda", {"k": "4", "m": "2"}),
+        "plugin jerasure": lambda: factory("jerasure", {"k": "4", "m": "2"}),
+        "Checksummer device": lambda: Checksummer(
+            "crc32c", 4096, use_device=True).calculate(bytes(4096)),
+        "ec_benchmark": lambda: ec_benchmark.run_bench(ec_benchmark.BenchConfig(
+            plugin="cuda", mode="batched", size=4096, batch=1)),
+    }
+
+
+@pytest.mark.parametrize("entry", sorted(_entry_points()))
+def test_entry_point_without_cuda_raises(entry):
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the default device is valid here")
+    from ceph_tpu_torch.device import DeviceUnavailable
+    with pytest.raises(DeviceUnavailable):
+        _entry_points()[entry]()
+
+
+def test_cpu_is_taken_only_when_asked():
+    from ceph_tpu_torch import device
+    assert device.resolve("cpu").type == "cpu"
+    with pytest.raises(device.DeviceUnavailable):
+        device.resolve("mps")
