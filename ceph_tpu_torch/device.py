@@ -38,11 +38,10 @@ def resolve(device: str | torch.device | None = DEFAULT_DEVICE) -> torch.device:
     return dev
 
 
-def staged(data: np.ndarray, pin: bool = False) -> torch.Tensor:
-    """A CPU uint8 tensor holding a copy of host bytes, in page-locked
-    memory when `pin` (the source of an asynchronous upload). Callers hand
+def staged(data: np.ndarray) -> torch.Tensor:
+    """A CPU uint8 tensor holding a copy of host bytes. Callers hand
     read-only np.frombuffer views of message buffers, which
     torch.from_numpy must not wrap; the copy is what goes to the card."""
-    t = torch.empty(data.shape, dtype=torch.uint8, pin_memory=pin)
+    t = torch.empty(data.shape, dtype=torch.uint8)
     np.copyto(t.numpy(), data, casting="unsafe")
     return t

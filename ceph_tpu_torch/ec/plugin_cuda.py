@@ -9,11 +9,11 @@ beyond the scalar interface it exposes
     here. numpy in gives numpy out; a tensor in gives a tensor on the
     same device out (CUDA tensors launch the bit-matrix kernel K1, CPU
     tensors run its plain version);
-  - a pipelined host-buffer path: `pipeline-depth` sub-batches are copied
-    into pinned staging memory, uploaded on a copy stream, encoded on the
-    current stream and downloaded on a third, so the upload of one
-    sub-batch overlaps the kernel of the one before; one synchronize
-    precedes the numpy result.
+  - a pipelined host-buffer path: `pipeline-depth` sub-batches are each
+    copied into pinned staging memory, uploaded on a copy stream, encoded
+    on the current stream and downloaded on a third, so the host copy of
+    one sub-batch overlaps the transfers and kernel of the one before;
+    one synchronize precedes the numpy result.
 
 Techniques: reed_sol_van (default), cauchy_good, over the same field
 (0x11D) and matrices as the reference. The profile's `device` key picks
@@ -92,15 +92,16 @@ class ErasureCodeCuda(ErasureCodeJerasure):
         """Host (b, k, S) bytes through `codec` on this plugin's device.
 
         The bytes are copied into staging first; on a card the staging
-        memory is pinned so the uploads and downloads are asynchronous."""
+        memory is pinned and filled one sub-batch at a time, so the host
+        copy of a sub-batch overlaps the upload, kernel and download of
+        the one before."""
         dev = self.device
-        on_card = dev.type == "cuda"
         if data.ndim != 3:
             raise ValueError(f"expected (batch, k, S), got {data.shape}")
-        staging = _device.staged(data, pin=on_card)
-        if not on_card:
-            return codec.apply_batch_device(staging).numpy()
+        if dev.type != "cuda":
+            return codec.apply_batch_device(_device.staged(data)).numpy()
         b, _, s = data.shape
+        staging = torch.empty(data.shape, dtype=torch.uint8, pin_memory=True)
         out = torch.empty((b, codec.r, s), dtype=torch.uint8, pin_memory=True)
         if self._streams is None:
             self._streams = (torch.cuda.Stream(dev), torch.cuda.Stream(dev))
@@ -110,6 +111,7 @@ class ErasureCodeCuda(ErasureCodeJerasure):
             if len(idx) == 0:
                 continue
             lo, hi = int(idx[0]), int(idx[-1]) + 1
+            np.copyto(staging[lo:hi].numpy(), data[lo:hi], casting="unsafe")
             with torch.cuda.stream(h2d):
                 src = staging[lo:hi].to(dev, non_blocking=True)
             compute.wait_stream(h2d)

@@ -7,10 +7,12 @@ BlueStore's per-blob checksums (bluestore_blob_t::{calc,verify}_csum,
 src/os/bluestore/bluestore_types.cc:814,840). Algorithms: crc32c,
 crc32c_8 / crc32c_16 (truncated, as in the reference's csum_type menu).
 
-Routing: a CUDA tensor of at least 256 blocks, or any buffer when
-`use_device=True`, goes to the device crc (K2: the kernel on a card, its
-plain version for a CPU tensor); host buffers go to the native C++ crc.
-The offload-service path (calculate_async) waits for that service's port.
+Routing: a CUDA tensor, of any number of blocks, is checksummed on its
+card by the device crc (K2); its bytes never travel back to the host.
+`use_device` decides only for buffers on the host: True sends them to the
+device crc on `device` (K2 on a card, its plain version for the CPU),
+None or False keeps them on the native C++ crc. The offload-service path
+(calculate_async) waits for that service's port.
 """
 from __future__ import annotations
 
@@ -24,17 +26,13 @@ CSUM_CRC32C_8 = "crc32c_8"
 
 _VALUE_BITS = {CSUM_CRC32C: 32, CSUM_CRC32C_16: 16, CSUM_CRC32C_8: 8}
 
-# device-auto threshold, applied only to buffers ALREADY on a card: for
-# host buffers the upload dominates, so host data stays on the native
-# kernel unless the caller forces use_device
-_DEVICE_MIN_BLOCKS = 256
-
 
 class Checksummer:
     """calculate/verify per-block checksums for one (type, block_size).
 
     `device` is where host buffers go when `use_device=True` (default
-    cuda); tensors are checksummed on the device they lie on."""
+    cuda); a tensor sent to the device crc is checksummed on the device
+    it lies on."""
 
     def __init__(self, csum_type: str = CSUM_CRC32C,
                  csum_block_size: int = 4096, use_device: bool | None = None,
@@ -49,21 +47,16 @@ class Checksummer:
         self.device = device
 
     def _crc_blocks(self, arr) -> np.ndarray:
-        nblocks = arr.numel() if isinstance(arr, torch.Tensor) else arr.size
-        nblocks //= self.block_size
-        if self.use_device is not None:
-            on_device = self.use_device
-        else:
-            on_device = (isinstance(arr, torch.Tensor) and arr.is_cuda
-                         and nblocks >= _DEVICE_MIN_BLOCKS)
-        if on_device:
+        is_tensor = isinstance(arr, torch.Tensor)
+        nblocks = (arr.numel() if is_tensor else arr.size) // self.block_size
+        if (is_tensor and arr.is_cuda) or self.use_device:
             from ceph_tpu_torch.ops import crc32c as crc_dev
-            dev = arr.device if isinstance(arr, torch.Tensor) else self.device
+            dev = arr.device if is_tensor else self.device
             return crc_dev.get_device_crc(self.block_size, device=dev)(
                 arr.reshape(nblocks, self.block_size))
         from ceph_tpu_torch.native import ec_native
-        if isinstance(arr, torch.Tensor):
-            arr = arr.cpu().numpy()
+        if is_tensor:
+            arr = arr.numpy()
         return ec_native.crc32c_blocks(arr, self.block_size)
 
     def calculate(self, data) -> np.ndarray:

@@ -35,9 +35,9 @@ BATCH = 16                      # stripes per launch (the on-chip batch)
 CSUM_BLOCK = 4096               # BlueStore csum block
 CRC_BATCH = 1 << 16             # blocks per crc launch
 
-# (bytes/s, dense int8 op/s) by card: NVIDIA data sheets
-_CARD_RATES = (("H200", 4.8e12, 1979e12), ("H100 NVL", 3.9e12, 1671e12),
-               ("H100 PCIe", 2.0e12, 1513e12), ("H100", 3.35e12, 1979e12))
+# (bytes/s, dense int8 op/s) by card name: NVIDIA's H100 data sheet
+_CARD_RATES = {"NVIDIA H100 80GB HBM3": (3.35e12, 1979e12),     # SXM
+               "NVIDIA H100 PCIe": (2.0e12, 1513e12)}
 
 
 def log(msg: str) -> None:
@@ -45,10 +45,10 @@ def log(msg: str) -> None:
 
 
 def card_rates(name: str) -> tuple[float, float]:
-    for key, bw, ops in _CARD_RATES:
-        if key in name:
-            return bw, ops
-    return _CARD_RATES[-1][1:]
+    if name not in _CARD_RATES:
+        raise RuntimeError(f"no memory and int8 rates known for {name!r}; "
+                           f"bounds need one of {sorted(_CARD_RATES)}")
+    return _CARD_RATES[name]
 
 
 def bound_ms(nbytes: float, ops: float, rates) -> tuple[float, str]:
@@ -58,8 +58,27 @@ def bound_ms(nbytes: float, ops: float, rates) -> tuple[float, str]:
 
 
 def time_ms(torch, fn, reps: int, warmup: int = 2) -> float:
-    """Median device time of one call of fn, each call bracketed by CUDA
-    events."""
+    """Device time of one call of fn: `reps` calls queued back to back
+    between one pair of CUDA events, divided by reps. One untimed call is
+    queued before the start event, so the stream is busy when it fires and
+    the host's work between launches hides behind the device's."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    fn()
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def time_isolated_ms(torch, fn, reps: int, warmup: int = 2) -> float:
+    """Median time of one call of fn bracketed alone by CUDA events on an
+    idle stream: the device time plus the host's launch work for it."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
@@ -93,7 +112,6 @@ def main() -> int:
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     import numpy as np
 
-    from ceph_tpu_torch.device import staged
     from ceph_tpu_torch.ec import gf256
     from ceph_tpu_torch.ec.registry import ErasureCodePluginRegistry
     from ceph_tpu_torch.native import ec_native, load as load_native
@@ -227,10 +245,21 @@ def main() -> int:
     want = ec_native.crc32c_blocks(sample, CSUM_BLOCK)
     if not np.array_equal(got[idx].cpu().numpy().astype(np.uint32), want):
         raise AssertionError("K2 at 2^16 x 4 KiB differs from the host crc")
+    # a small buffer already on the card is checksummed there, by K2, with
+    # the Checksummer's default routing
+    small = big[:16]
+    before = crc32c.launches
+    got = Checksummer("crc32c", CSUM_BLOCK).calculate(small)
+    if crc32c.launches != before + 1:
+        raise AssertionError("a 16-block card tensor did not launch K2")
+    if not np.array_equal(got, ec_native.crc32c_blocks(small.cpu().numpy(),
+                                                       CSUM_BLOCK)):
+        raise AssertionError("Checksummer on a card tensor differs from host")
     log(f"phase 2: K2 equal to its plain version in {k2_checks} cases "
         f"(4096 blocks x bs 512/4096/65536, seeds -1/0/{rand_seed:#x}), "
         f"max_abs_err {k2_err} (tolerance 0); 2^16 x 4 KiB sample of "
-        f"1024 equal to the host native crc; "
+        f"1024 equal to the host native crc; a 16-block card tensor "
+        f"checksummed by K2 under default routing; "
         f"{time.perf_counter() - t0:.1f} s")
 
     # -- phase 3: the main path: ECUtil with the cuda plugin ------------------
@@ -302,35 +331,45 @@ def main() -> int:
 
     # -- phase 4: the benchmark and the kernels' times -------------------------
     bench = {}
-    params = {"k": str(K), "m": str(M)}
-    for label, mode, workload, iters in (
-            ("encode batched", "batched", "encode", 40),
-            ("decode batched", "batched", "decode", 40),
-            ("encode batched-host", "batched-host", "encode", 10),
-            ("encode native", "native", "encode", 10),
-            ("decode native", "native", "decode", 10)):
+
+    def run_bench(label, mode, workload, iters, **profile):
         cfg = ec_benchmark.BenchConfig(
             plugin="cuda", workload=workload, size=K * CHUNK,
-            iterations=iters, erasures=M, seed=42, parameters=dict(params),
-            mode=mode, batch=BATCH if "batched" in mode else 1, warmup=2,
+            iterations=iters, erasures=M, seed=42,
+            parameters={"k": str(K), "m": str(M), **profile}, mode=mode,
+            batch=BATCH if "batched" in mode else 1, warmup=2,
             device=str(dev))
         res = ec_benchmark.run_bench(cfg)
-        bench[label] = {"seconds": res.seconds, "kib": res.kib,
-                        "gb_per_s": res.gb_per_s}
+        bench.setdefault(label, []).append(
+            {"seconds": res.seconds, "kib": res.kib, "gb_per_s": res.gb_per_s})
+        opts = "".join(f" -P {k}={v}" for k, v in profile.items())
         log(f"phase 4: ec_benchmark -p cuda -w {workload} --mode {mode} "
-            f"-s {K * CHUNK} --batch {cfg.batch} -i {iters}: "
+            f"-s {K * CHUNK} --batch {cfg.batch} -i {iters}{opts}: "
             f"{res.seconds:.6f}\t{res.kib:.0f}  -> {res.gb_per_s:.3f} GB/s")
+
+    run_bench("encode batched", "batched", "encode", 40)
+    run_bench("decode batched", "batched", "decode", 40)
+    # the host-buffer path without overlap (depth 1) and with the default
+    # depth 4, interleaved 1, 4, 4, 1 so that drift in the shared host's
+    # speed falls on both
+    for depth in (1, 4, 4, 1):
+        run_bench(f"encode batched-host depth {depth}", "batched-host",
+                  "encode", 10, **{"pipeline-depth": str(depth)})
+    run_bench("encode native", "native", "encode", 10)
+    run_bench("decode native", "native", "decode", 10)
     report["bench"] = bench
 
     codec = rs_codec.MatrixCodec.get(gf256.reed_sol_van_matrix(K, M))
     packed, bitm = codec._bitmatrix_for(dev)
 
-    # where the host-buffer path's time goes, one 16-stripe batch at a time
+    # where the host-buffer path's time goes, one 16-stripe batch, one
+    # stage at a time
     host = np.full((BATCH, K, CHUNK), ord("X"), dtype=np.uint8)
+    staging = torch.empty(host.shape, dtype=torch.uint8, pin_memory=True)
     copies = []
     for _ in range(5):
         t0 = time.perf_counter()
-        staging = staged(host, pin=True)
+        np.copyto(staging.numpy(), host)
         copies.append((time.perf_counter() - t0) * 1e3)
     on_card = staging.to(dev)
     parity = codec.apply_batch_device(on_card)
@@ -343,17 +382,24 @@ def main() -> int:
             torch, lambda: codec.apply_batch_device(on_card), 10),
         "d2h_ms": time_ms(
             torch, lambda: back.copy_(parity, non_blocking=True), 10)}
-    split["plugin_ms"] = bench["encode batched-host"]["seconds"] / 10 * 1e3
+    for depth in (1, 4):
+        runs = bench[f"encode batched-host depth {depth}"]
+        split[f"plugin_ms_depth{depth}"] = statistics.mean(
+            r["seconds"] for r in runs) / 10 * 1e3
     report["host_path_split"] = split
     log(f"phase 4: batched-host split per {BATCH}x{K}x1MiB batch: host copy "
         f"into pinned staging {split['host_copy_ms']:.3f} ms, H2D "
         f"{split['h2d_ms']:.3f} ms ({host.nbytes / split['h2d_ms'] / 1e6:.1f} "
         f"GB/s), K1 {split['kernel_ms']:.3f} ms, D2H {split['d2h_ms']:.3f} ms "
         f"({parity.numel() / split['d2h_ms'] / 1e6:.1f} GB/s); the plugin "
-        f"call took {split['plugin_ms']:.3f} ms")
+        f"call took {split['plugin_ms_depth1']:.3f} ms at pipeline depth 1, "
+        f"{split['plugin_ms_depth4']:.3f} ms at depth 4 (mean of 2 x 10 "
+        f"calls each)")
     del host, staging, on_card, parity, back
     data = ec_benchmark.device_test_data(BATCH, K, CHUNK, dev)
     k1_ms = time_ms(torch, lambda: codec.apply_batch_device(data), 30)
+    k1_iso_ms = time_isolated_ms(
+        torch, lambda: codec.apply_batch_device(data), 30)
     k1_plain_ms = time_ms(
         torch, lambda: rs_codec.apply_bitmatrix_plain(bitm, data), 3, 1)
     k1_bytes = BATCH * (K + M) * CHUNK
@@ -362,6 +408,7 @@ def main() -> int:
     del data
     blocks = rand_bytes(CRC_BATCH, CSUM_BLOCK)
     k2_ms = time_ms(torch, lambda: crc_full.blocks(blocks), 30)
+    k2_iso_ms = time_isolated_ms(torch, lambda: crc_full.blocks(blocks), 30)
     k2_plain_ms = time_ms(
         torch, lambda: crc32c.crc32c_blocks_plain(blocks), 3, 1)
     k2_bytes = CRC_BATCH * CSUM_BLOCK + 8 * CRC_BATCH
@@ -375,6 +422,7 @@ def main() -> int:
          "shape": f"({BATCH},{K},{CHUNK}) -> ({BATCH},{M},{CHUNK}) uint8",
          "matched": k1_err == 0, "launches": main_launches["gf_bitmatrix"],
          "max_abs_err": k1_err, "tolerance": 0, "ms": k1_ms, "kernel_ms": k1_ms,
+         "isolated_ms": k1_iso_ms,
          "plain_ms": k1_plain_ms, "bound_ms": k1_bound, "bound_by": k1_by,
          "library_ms": None},
         {"name": "crc32c_blocks", "route": "cuda",
@@ -383,12 +431,14 @@ def main() -> int:
          "shape": f"({CRC_BATCH},{CSUM_BLOCK}) uint8 -> ({CRC_BATCH},) crc",
          "matched": k2_err == 0, "launches": main_launches["crc32c_blocks"],
          "max_abs_err": k2_err, "tolerance": 0, "ms": k2_ms, "kernel_ms": k2_ms,
+         "isolated_ms": k2_iso_ms,
          "plain_ms": k2_plain_ms, "bound_ms": k2_bound, "bound_by": k2_by,
          "library_ms": None},
     ]
     for kr, nbytes in zip(kernels, (k1_bytes, k2_bytes)):
         log(f"phase 4: {kr['name']} {kr['shape']}: kernel {kr['ms']:.4f} ms "
-            f"({nbytes / kr['ms'] / 1e6:.1f} GB/s), bound {kr['bound_ms']:.4f} "
+            f"back to back ({nbytes / kr['ms'] / 1e6:.1f} GB/s; one launch "
+            f"alone on an idle stream {kr['isolated_ms']:.4f} ms), bound {kr['bound_ms']:.4f} "
             f"ms by {kr['bound_by']} ({kr['bound_ms'] / kr['ms'] * 100:.1f}% "
             f"of it), plain {kr['plain_ms']:.3f} ms, launches on the main "
             f"path {kr['launches']}; no single PyTorch call computes this "

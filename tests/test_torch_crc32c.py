@@ -139,6 +139,55 @@ def test_checksummer_device_path_matches_jax_device_path():
     np.testing.assert_array_equal(got, ref)
 
 
+class _TensorOnCard(torch.Tensor):
+    """A CPU tensor that reports itself as lying on a card."""
+
+    @property
+    def is_cuda(self):
+        return True
+
+
+@pytest.mark.parametrize("use_device", [None, False, True])
+@pytest.mark.parametrize("nblocks", [1, 16, 300])
+def test_checksummer_keeps_card_tensors_on_the_card(monkeypatch, use_device,
+                                                    nblocks):
+    # a tensor on a card goes to the device crc at any block count and any
+    # use_device; the host crc (which would copy it back) is never called
+    calls = []
+
+    def device_crc(block_size, seed=0xFFFFFFFF, device="cuda"):
+        def run(blocks):
+            calls.append((block_size, device, tuple(blocks.shape)))
+            return crc32c.crc32c_blocks_plain(blocks).numpy().astype(np.uint32)
+        return run
+
+    def host_crc(*args):
+        raise AssertionError("a tensor on a card reached the host crc")
+
+    monkeypatch.setattr(crc32c, "get_device_crc", device_crc)
+    monkeypatch.setattr(ec_native, "crc32c_blocks", host_crc)
+    data = np.random.default_rng(12).integers(0, 256, nblocks * 512,
+                                              dtype=np.uint8)
+    on_card = torch.from_numpy(data).as_subclass(_TensorOnCard)
+    got = Checksummer("crc32c", 512, use_device=use_device).calculate(on_card)
+    assert calls == [(512, on_card.device, (nblocks, 512))]
+    np.testing.assert_array_equal(
+        got, RefChecksummer("crc32c", 512).calculate(data.tobytes()))
+
+
+@pytest.mark.parametrize("use_device", [None, False])
+def test_checksummer_keeps_host_buffers_on_the_host(monkeypatch, use_device):
+    def device_crc(*args, **kwargs):
+        raise AssertionError("a host buffer reached the device crc")
+
+    monkeypatch.setattr(crc32c, "get_device_crc", device_crc)
+    data = np.random.default_rng(13).integers(0, 256, 300 * 512, dtype=np.uint8)
+    cs = Checksummer("crc32c", 512, use_device=use_device)
+    want = RefChecksummer("crc32c", 512).calculate(data.tobytes())
+    np.testing.assert_array_equal(cs.calculate(data.tobytes()), want)
+    np.testing.assert_array_equal(cs.calculate(torch.from_numpy(data)), want)
+
+
 def test_checksummer_misaligned_and_none():
     cs = Checksummer("crc32c", 4096)
     with pytest.raises(ValueError, match="not a multiple"):
