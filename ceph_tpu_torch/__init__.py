@@ -14,9 +14,15 @@ Subpackages (same layout as ceph_tpu):
   ec      erasure-code plugin layer: interface, registry, jerasure
           matrix techniques, the `cuda` plugin
   ops     device kernels: GF(2^8) bit-matrix apply (K1), crc32c over
-          fixed-size blocks (K2), both hand-written CUDA for sm_90a
-  osd     ECUtil stripe codec (encode / decode_concat / decode_shards)
-  utils   Checksummer (BlueStore per-block checksums)
+          fixed-size blocks (K2), the sharded encode's per-device step
+          with its checksum (K3), all hand-written CUDA for sm_90a
+  osd     ECUtil stripe codec (encode / decode_concat / decode_shards,
+          and their offload-service paths)
+  offload the process-wide offload service (batching, per-card breakers,
+          mesh fan-out)
+  parallel the (stripe, shard) device mesh and the sharded encode
+  utils   Checksummer (BlueStore per-block checksums); copies of dout,
+          perf counters and the Throttle
   native  ctypes loader for the repo's host C++ codec and crc32c
   tools   ec_benchmark
 """

@@ -38,6 +38,27 @@ def resolve(device: str | torch.device | None = DEFAULT_DEVICE) -> torch.device:
     return dev
 
 
+def resolve_all(devices=None) -> list[torch.device]:
+    """A device list for the multi-device entry points (the mesh, the
+    offload service): each entry resolved as `resolve` does, repeats
+    allowed; None means every visible card, and raises without one."""
+    if devices is not None:
+        return [resolve(d) for d in devices]
+    if not torch.cuda.is_available() or torch.cuda.device_count() == 0:
+        raise DeviceUnavailable(
+            "no CUDA device; pass devices=['cpu', ...] to run the plain "
+            "PyTorch versions")
+    return [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
+
+
+def host_tensor(data) -> torch.Tensor:
+    """A CPU uint8 tensor over host bytes, sharing numpy's memory where
+    it can; read-only buffers (np.frombuffer of message bytes) are
+    copied by `staged`, since torch.from_numpy must not wrap them."""
+    arr = np.ascontiguousarray(data, dtype=np.uint8)
+    return torch.from_numpy(arr) if arr.flags.writeable else staged(arr)
+
+
 def staged(data: np.ndarray) -> torch.Tensor:
     """A CPU uint8 tensor holding a copy of host bytes. Callers hand
     read-only np.frombuffer views of message buffers, which

@@ -42,8 +42,8 @@ DEFAULT_M = 3
 
 class ErasureCodeCuda(ErasureCodeJerasure):
     technique = "reed_sol_van"
-    #: batched APIs dispatch to the accelerator (as plugin_tpu's flag; the
-    #: port has no offload service yet, so nothing routes on it)
+    #: batched APIs dispatch to the accelerator (plugin_tpu's flag: the
+    #: OSD's EC backend sends such plugins through the offload service)
     device_batched = True
 
     def init(self, profile: Mapping[str, str]) -> None:

@@ -223,10 +223,11 @@ class Crc32cDevice:
         if blocks.shape[0] == 0:
             return out
         lib = _build.load(_KERNEL, _SIGNATURES)
-        rc = lib.crc32c_blocks_run(
-            _build.ptr(blocks), blocks.shape[0], self.block_size,
-            _build.ptr(self._tables), _build.ptr(self._advance), self.const,
-            _build.ptr(out), _build.stream(blocks.device))
+        with torch.cuda.device(blocks.device):   # launch on blocks' card
+            rc = lib.crc32c_blocks_run(
+                _build.ptr(blocks), blocks.shape[0], self.block_size,
+                _build.ptr(self._tables), _build.ptr(self._advance),
+                self.const, _build.ptr(out), _build.stream(blocks.device))
         _build.check(lib, _KERNEL, rc)
         launches += 1
         return out

@@ -12,6 +12,16 @@ the hand-written kernel in csrc/gf_bitmatrix.cu, on a CPU tensor it runs
 `apply_bitmatrix_plain`, the same function in bit-plane form in plain
 PyTorch. The kernel masks ragged N itself, so nothing here pads lanes or
 buckets batches.
+
+`encode_local` is K3's wrapper, the per-device step of the sharded encode
+(ceph_tpu/parallel/mesh.py `_encode_local` and its checksum): the same
+apply over one device's slice of parity rows, which also returns
+sum(parity * 2654435761) mod 2^32, computed inside the kernel
+(`gf_bitmatrix_apply_csum` in the same source). `encode_local_plain` is
+its plain version.
+
+Every launch goes to the device the tensor lies on, whatever the calling
+thread's current device is.
 """
 from __future__ import annotations
 
@@ -28,12 +38,19 @@ from ceph_tpu_torch.ops import _build
 
 #: kernel launches by `apply_bitmatrix` (not by the plain version)
 launches = 0
+#: K3 launches by `encode_local` (not by its plain version)
+encode_local_launches = 0
+
+#: the sharded encode's checksum weight (ceph_tpu/parallel/mesh.py:96)
+CSUM_MUL = 2654435761
 
 _KERNEL = "gf_bitmatrix"
-_SIGNATURES = {"gf_bitmatrix_apply": [ctypes.c_void_p, ctypes.c_void_p,
-                                      ctypes.c_void_p, ctypes.c_longlong,
-                                      ctypes.c_longlong, ctypes.c_longlong,
-                                      ctypes.c_longlong, ctypes.c_void_p]}
+_APPLY_ARGS = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+               ctypes.c_longlong, ctypes.c_longlong, ctypes.c_longlong,
+               ctypes.c_longlong]
+_SIGNATURES = {"gf_bitmatrix_apply": _APPLY_ARGS + [ctypes.c_void_p],
+               "gf_bitmatrix_apply_csum": _APPLY_ARGS + [ctypes.c_void_p,
+                                                         ctypes.c_void_p]}
 
 # The plain version keeps its (b, 8k, width) plane tensor under this many
 # bytes by working through N in chunks.
@@ -82,6 +99,22 @@ def apply_bitmatrix_plain(bitmatrix: torch.Tensor,
     return out
 
 
+def _check_operands(packed: torch.Tensor, bitmatrix: torch.Tensor,
+                    data: torch.Tensor) -> None:
+    if not isinstance(data, torch.Tensor) or data.dtype != torch.uint8:
+        raise TypeError("data must be a torch.uint8 tensor")
+    if data.dim() != 3 or not data.is_contiguous():
+        raise ValueError(f"data must be contiguous (b, k, N), got "
+                         f"{tuple(data.shape)} contiguous={data.is_contiguous()}")
+    if data.shape[1] != packed.shape[1]:
+        raise ValueError(f"expected {packed.shape[1]} input chunks, got "
+                         f"{data.shape[1]}")
+    if packed.device != data.device or bitmatrix.device != data.device:
+        raise ValueError(f"matrix on {packed.device}, data on {data.device}")
+    if data.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"unsupported device {data.device}")
+
+
 def apply_bitmatrix(packed: torch.Tensor, bitmatrix: torch.Tensor,
                     data: torch.Tensor) -> torch.Tensor:
     """K1's wrapper: data (b, k, N) uint8 -> (b, r, N) uint8.
@@ -90,31 +123,63 @@ def apply_bitmatrix(packed: torch.Tensor, bitmatrix: torch.Tensor,
     plain version's; both must lie on data's device. A CUDA tensor
     launches the kernel; a CPU tensor takes the plain version."""
     global launches
-    if not isinstance(data, torch.Tensor) or data.dtype != torch.uint8:
-        raise TypeError("data must be a torch.uint8 tensor")
-    if data.dim() != 3 or not data.is_contiguous():
-        raise ValueError(f"data must be contiguous (b, k, N), got "
-                         f"{tuple(data.shape)} contiguous={data.is_contiguous()}")
-    r, k, _ = packed.shape
-    if data.shape[1] != k:
-        raise ValueError(f"expected {k} input chunks, got {data.shape[1]}")
-    if packed.device != data.device or bitmatrix.device != data.device:
-        raise ValueError(f"matrix on {packed.device}, data on {data.device}")
+    _check_operands(packed, bitmatrix, data)
     if data.device.type == "cpu":
         return apply_bitmatrix_plain(bitmatrix, data)
-    if data.device.type != "cuda":
-        raise ValueError(f"unsupported device {data.device}")
+    r, k, _ = packed.shape
     b, _, n = data.shape
     out = torch.empty((b, r, n), dtype=torch.uint8, device=data.device)
     if b == 0 or n == 0 or r == 0:
         return out
     lib = _build.load(_KERNEL, _SIGNATURES)
-    rc = lib.gf_bitmatrix_apply(_build.ptr(data), _build.ptr(packed),
-                                _build.ptr(out), b, k, n, r,
-                                _build.stream(data.device))
+    with torch.cuda.device(data.device):
+        rc = lib.gf_bitmatrix_apply(_build.ptr(data), _build.ptr(packed),
+                                    _build.ptr(out), b, k, n, r,
+                                    _build.stream(data.device))
     _build.check(lib, _KERNEL, rc)
     launches += 1
     return out
+
+
+def encode_local_plain(bitmatrix_local: torch.Tensor,
+                       data: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """K3's function in plain PyTorch: bitmatrix_local (8r, 8k) {0,1},
+    data (b, k, N) uint8 -> (parity (b, r, N) uint8, checksum), the
+    checksum a 0-d int64 tensor holding sum(parity * 2654435761) mod
+    2^32. In int64 throughout: the byte sum is taken mod 2^32 first and
+    the weight split in 16-bit halves, so no product reaches 2^63."""
+    parity = apply_bitmatrix_plain(bitmatrix_local, data)
+    s = parity.sum(dtype=torch.int64) & 0xFFFFFFFF
+    lo, hi = CSUM_MUL & 0xFFFF, CSUM_MUL >> 16
+    csum = (s * lo + (((s * hi) & 0xFFFF) << 16)) & 0xFFFFFFFF
+    return parity, csum
+
+
+def encode_local(packed_local: torch.Tensor, bitmatrix_local: torch.Tensor,
+                 data: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """K3's wrapper: data (b, k, N) uint8 -> (parity (b, r, N) uint8,
+    0-d int64 checksum on data's device), the operands being one
+    device's row slice of the padded matrix (`packed_local` (r, k, 8)
+    for the kernel, `bitmatrix_local` (8r, 8k) for the plain version).
+    A CUDA tensor launches the kernel, which writes parity and checksum
+    in one pass; a CPU tensor takes the plain version."""
+    global encode_local_launches
+    _check_operands(packed_local, bitmatrix_local, data)
+    if data.device.type == "cpu":
+        return encode_local_plain(bitmatrix_local, data)
+    r, k, _ = packed_local.shape
+    b, _, n = data.shape
+    out = torch.empty((b, r, n), dtype=torch.uint8, device=data.device)
+    csum = torch.empty(1, dtype=torch.int32, device=data.device)
+    lib = _build.load(_KERNEL, _SIGNATURES)
+    with torch.cuda.device(data.device):
+        rc = lib.gf_bitmatrix_apply_csum(
+            _build.ptr(data), _build.ptr(packed_local), _build.ptr(out),
+            b, k, n, r, _build.ptr(csum), _build.stream(data.device))
+    _build.check(lib, _KERNEL, rc)
+    encode_local_launches += 1
+    # the kernel's uint32 bits, widened (torch's uint32 has few operators)
+    return out, csum[0].to(torch.int64) & 0xFFFFFFFF
 
 
 class MatrixCodec:

@@ -18,10 +18,12 @@ HashInfo mirrors `ECUtil::HashInfo` (src/osd/ECUtil.h:141-199): cumulative
 per-shard crc32c maintained across appends, stored in object metadata and
 checked on reads/deep-scrub.
 
-Port of ceph_tpu/osd/ec_util.py: the synchronous paths, with the
-`cuda` plugin's batched APIs carrying the stripes to the card. The
-tracer, copy-ledger and sanitizer hooks and the offload-service
-(`*_async`) variants belong to the cluster runtime and come with its port.
+Port of ceph_tpu/osd/ec_util.py, with the `cuda` plugin's batched APIs
+carrying the stripes to the card. The `*_async` variants route the
+device dispatch through the offload service (ceph_tpu_torch.offload),
+where it coalesces with concurrent callers. The tracer spans,
+copy-ledger and sanitizer hooks belong to the cluster runtime and come
+with its port.
 """
 from __future__ import annotations
 
@@ -212,19 +214,50 @@ def encode(sinfo: StripeInfo, ec_impl, data: bytes | np.ndarray,
                           mapping, batched)
 
 
-def _batched_reconstruct(ec_impl, stacked: Mapping[int, np.ndarray],
-                         helpers: list[int], want: list[int]) -> dict[int, np.ndarray]:
-    """One-dispatch reconstruction of `want` shards from per-shard
-    (n, chunk_size) planes via the plugin's decode_stripes batch API:
-    the first k helpers, stacked (n, k, C) in helper order."""
+async def encode_async(sinfo: StripeInfo, ec_impl,
+                       data: bytes | np.ndarray,
+                       want: Iterable[int] | None = None,
+                       service=None) -> dict[int, bytes]:
+    """encode() through the offload service: the device dispatch enters
+    the admission queue and coalesces with concurrent callers' stripes
+    (one staged device batch across PGs) instead of dispatching inline.
+    Without a service, or on a plugin with no batched API, this is
+    exactly encode()."""
+    stripes, want, k, n_chunks, mapping, batched = _encode_frame(
+        sinfo, ec_impl, data, want)
+    if stripes is None:
+        return {i: b"" for i in sorted(want)}
+    if not (batched and service is not None):
+        return _encode_framed(sinfo, ec_impl, stripes, want, k, n_chunks,
+                              mapping, batched)
+    parity = np.asarray(await service.encode(ec_impl, stripes))
+    return _encode_assemble(stripes, parity, k, want)
+
+
+def _reconstruct_stack(ec_impl, stacked: Mapping[int, np.ndarray],
+                       helpers) -> tuple[tuple[int, ...], np.ndarray]:
+    """The dispatch contract of batched reconstruction, in ONE place
+    (first-k helper order, (n, k, C) stacking), shared by the inline and
+    offload-service paths of both degraded read and shard recovery."""
     k = ec_impl.get_data_chunk_count()
     use = tuple(helpers[:k])
     if len(use) < k:
         raise ErasureCodeError(
             f"cannot decode: {len(use)} shards available, need {k}")
-    src = np.stack([stacked[i] for i in use], axis=1)  # (n, k, C)
-    rec = np.asarray(ec_impl.decode_stripes(use, tuple(want), src))
+    return use, np.stack([stacked[i] for i in use], axis=1)  # (n, k, C)
+
+
+def _reconstruct_unstack(rec: np.ndarray, want) -> dict[int, np.ndarray]:
     return {wid: rec[:, j, :] for j, wid in enumerate(want)}
+
+
+def _batched_reconstruct(ec_impl, stacked: Mapping[int, np.ndarray],
+                         helpers: list[int], want: list[int]) -> dict[int, np.ndarray]:
+    """One-dispatch reconstruction of `want` shards from per-shard
+    (n, chunk_size) planes via the plugin's decode_stripes batch API."""
+    use, src = _reconstruct_stack(ec_impl, stacked, helpers)
+    rec = np.asarray(ec_impl.decode_stripes(use, tuple(want), src))
+    return _reconstruct_unstack(rec, want)
 
 
 def _decode_concat_frame(sinfo: StripeInfo, ec_impl,
@@ -304,6 +337,27 @@ def _decode_concat_framed(sinfo: StripeInfo, ec_impl, work) -> bytes:
     return b"".join(parts)
 
 
+async def decode_concat_async(sinfo: StripeInfo, ec_impl,
+                              to_decode: Mapping[int, bytes],
+                              service=None) -> bytes:
+    """decode_concat() with the reconstruction dispatch routed through
+    the offload service (degraded reads coalesce across PGs when they
+    share an erasure pattern). Healthy reads never touch the device and
+    return synchronously either way."""
+    done, work = _decode_concat_frame(sinfo, ec_impl, to_decode)
+    if done is not None:
+        return done
+    stacked, avail_ids, missing, want, k, n_stripes, mapping = work
+    if not (service is not None and not mapping
+            and callable(getattr(ec_impl, "decode_stripes", None))):
+        return _decode_concat_framed(sinfo, ec_impl, work)
+    use, src = _reconstruct_stack(ec_impl, stacked, avail_ids)
+    rec = np.asarray(await service.decode(ec_impl, use, tuple(missing), src))
+    recovered = _reconstruct_unstack(rec, missing)
+    return _decode_concat_assemble(sinfo, stacked, recovered, want,
+                                   k, n_stripes)
+
+
 def _decode_shards_frame(sinfo: StripeInfo, ec_impl,
                          to_decode: Mapping[int, bytes], need: list[int],
                          fragments: bool = False):
@@ -356,6 +410,51 @@ def _decode_shards_frame(sinfo: StripeInfo, ec_impl,
         raise ErasureCodeError("shard buffer not aligned to repair unit")
     return arrays, helpers, plan_counts, sub, repair_per_chunk, \
         total // repair_per_chunk
+
+
+async def decode_shards_async(sinfo: StripeInfo, ec_impl,
+                              to_decode: Mapping[int, bytes],
+                              need: Iterable[int],
+                              service=None,
+                              fragments: bool = False) -> dict[int, bytes]:
+    """decode_shards() with the repair dispatch routed through the
+    offload service. Whole-chunk plans on batch-capable plugins ride the
+    decode job's (n, k, C) shape; single-shard SUB-CHUNK plans (a
+    regenerating repair fed with only repair_per_chunk bytes per helper
+    chunk, declared by `fragments=True`) ride the service's repair job,
+    coalesced per erasure pattern and run off the event loop. Mapped
+    plugins and multi-shard sub-chunk plans keep the inline path."""
+    need_l = sorted(set(need))
+    if (fragments and service is not None and len(need_l) == 1
+            and ec_impl.get_sub_chunk_count() > 1
+            and not ec_impl.get_chunk_mapping()):
+        arrays, helpers, plan_counts, sub, rpc, n_chunks = \
+            _decode_shards_frame(sinfo, ec_impl, to_decode, need_l,
+                                 fragments=True)
+        if n_chunks > 0 and rpc < sinfo.chunk_size:
+            frags = np.stack([arrays[h].reshape(n_chunks, rpc)
+                              for h in helpers], axis=1)
+            out = np.asarray(await service.repair(
+                ec_impl, tuple(helpers), tuple(need_l), frags,
+                sinfo.chunk_size))
+            return {need_l[0]: np.ascontiguousarray(out).tobytes()}
+    if not (service is not None
+            and ec_impl.get_sub_chunk_count() == 1
+            and not ec_impl.get_chunk_mapping()
+            and callable(getattr(ec_impl, "decode_stripes", None))):
+        return decode_shards(sinfo, ec_impl, to_decode, need_l,
+                             fragments=fragments)
+    arrays, helpers, _plan, _sub, _rpc, n_chunks = _decode_shards_frame(
+        sinfo, ec_impl, to_decode, need_l)
+    if n_chunks == 0:
+        return decode_shards(sinfo, ec_impl, to_decode, need_l,
+                             fragments=fragments)
+    stacked = {i: arrays[i].reshape(n_chunks, sinfo.chunk_size)
+               for i in helpers}
+    use, src = _reconstruct_stack(ec_impl, stacked, helpers)
+    rec = np.asarray(await service.decode(ec_impl, use, tuple(need_l), src))
+    return {nid: np.ascontiguousarray(plane).tobytes()
+            for nid, plane in _reconstruct_unstack(rec, need_l).items()}
 
 
 def decode_shards(sinfo: StripeInfo, ec_impl, to_decode: Mapping[int, bytes],

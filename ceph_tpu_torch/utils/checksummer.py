@@ -11,8 +11,10 @@ Routing: a CUDA tensor, of any number of blocks, is checksummed on its
 card by the device crc (K2); its bytes never travel back to the host.
 `use_device` decides only for buffers on the host: True sends them to the
 device crc on `device` (K2 on a card, its plain version for the CPU),
-None or False keeps them on the native C++ crc. The offload-service path
-(calculate_async) waits for that service's port.
+None or False keeps them on the native C++ crc. `calculate_async` submits
+host buffers (one, or a list: a scatter job) to the offload service,
+where they coalesce with other callers' blocks; tensors, a missing
+service and csum type none take `calculate`.
 """
 from __future__ import annotations
 
@@ -80,6 +82,51 @@ class Checksummer:
                 f"buffer size {size} not a multiple of csum block "
                 f"{self.block_size}")
         csums = self._crc_blocks(arr)
+        bits = _VALUE_BITS[self.csum_type]
+        if bits < 32:
+            csums = csums & ((1 << bits) - 1)
+        return csums
+
+    def _as_blocks(self, data) -> np.ndarray:
+        """One host buffer -> an (N, block_size) uint8 view (no copy for
+        bytes-likes and contiguous arrays)."""
+        if isinstance(data, (bytes, bytearray, memoryview)):
+            arr = np.frombuffer(data, dtype=np.uint8)
+        else:
+            arr = np.ascontiguousarray(data, dtype=np.uint8).reshape(-1)
+        if arr.size % self.block_size:
+            raise ValueError(
+                f"buffer size {arr.size} not a multiple of csum block "
+                f"{self.block_size}")
+        return arr.reshape(-1, self.block_size)
+
+    async def calculate_async(self, data, service=None) -> np.ndarray:
+        """calculate() with the per-block crc batch submitted through the
+        offload service: the blocks coalesce with concurrent callers
+        (EC shard csums, other checksummers) into one crc job and the
+        work leaves the event loop. `data` may be a LIST of block-aligned
+        buffers (an EC write's shard buffers): they ride ONE scatter job
+        whose fragments stack straight into the service's staging page,
+        and the result concatenates in fragment order. Without a service,
+        for tensors, or for csum type none this is calculate()."""
+        scattered = isinstance(data, (list, tuple))
+        if service is None or self.csum_type == CSUM_NONE \
+                or (not scattered and isinstance(data, torch.Tensor)):
+            if not scattered:
+                return self.calculate(data)
+            parts = [self.calculate(d) for d in data]
+            return np.concatenate(parts) if parts \
+                else np.zeros(0, dtype=np.uint32)
+        if scattered:
+            blocks = [self._as_blocks(d) for d in data if len(d)]
+            if not blocks:
+                return np.zeros(0, dtype=np.uint32)
+        else:
+            blocks = self._as_blocks(data)
+            if blocks.size == 0:
+                return np.zeros(0, dtype=np.uint32)
+        csums = np.asarray(await service.crc32c_blocks(blocks,
+                                                       self.block_size))
         bits = _VALUE_BITS[self.csum_type]
         if bits < 32:
             csums = csums & ((1 << bits) - 1)

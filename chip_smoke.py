@@ -5,12 +5,32 @@
 
 Builds the port's kernels from the sources in this checkout, holds each
 against its plain PyTorch version on the card (exact equality: all values
-are integers), drives the main path through the entry points a user calls
-(the OSD's ECUtil encode / degraded read / shard rebuild with the `cuda`
-plugin, BlueStore checksums, HashInfo) at the BASELINE configuration
-(k=8, m=3, 1 MiB chunks), checks what comes out against the host codec,
-and times the kernels and the benchmark. Nothing is caught: any failure
-exits non-zero. Without a card it exits 2 and prints no result.
+are integers), drives the main paths through the entry points a user calls
+at the BASELINE configuration (k=8, m=3, 1 MiB chunks) and checks what
+comes out against the host codec:
+
+  phases 0-4  build; K1 and K2 against their plain versions; the OSD's
+              ECUtil encode / degraded read / shard rebuild with the `cuda`
+              plugin, BlueStore checksums, HashInfo; the benchmark and the
+              kernels' times;
+  phase 5     K3 (the sharded encode's per-device step, parity plus
+              checksum) against its plain version;
+  phase 6     the mesh: the sharded pipeline step and mesh_storage_impl
+              under ECUtil, on a 1x1 mesh and a 2x2 mesh over one card
+              named four times (and over every card when there are two or
+              more);
+  phase 7     the offload service, the OSD's asynchronous EC data path:
+              concurrent encode_async / decode_concat_async /
+              decode_shards_async / calculate_async at the default
+              settings, with 128 MiB batches and the device crc, and over
+              two slots on one card with a mesh threshold low enough that
+              a batch goes through K3; no batch may reach the host
+              fallback;
+  phase 8     K3's time.
+
+Each path's launch counts are set to 0 just before it and read just after;
+a kernel of the path launched no time fails the run. Nothing is caught: any
+failure exits non-zero. Without a card it exits 2 and prints no result.
 
 Output: progress lines, the card's name and power limit as nvidia-smi
 reports them, a JSON line {"kernels": [...]}, and last
@@ -34,6 +54,9 @@ CHUNK = 1 << 20                 # 1 MiB chunks
 BATCH = 16                      # stripes per launch (the on-chip batch)
 CSUM_BLOCK = 4096               # BlueStore csum block
 CRC_BATCH = 1 << 16             # blocks per crc launch
+SERVICE_WRITES = 16             # concurrent one-stripe writes per pass
+ERASURES = ((0, 1, 2), (4, 8, 10), (7, 9, 10))
+MESH_ERASURES = ((0, 1, 2), (1, K, K + 2))     # __graft_entry__.py's
 
 # (bytes/s, dense int8 op/s) by card name: NVIDIA's H100 data sheet
 _CARD_RATES = {"NVIDIA H100 80GB HBM3": (3.35e12, 1979e12),     # SXM
@@ -97,6 +120,229 @@ def time_isolated_ms(torch, fn, reps: int, warmup: int = 2) -> float:
 def max_abs_err(a, b) -> int:
     """Largest |a - b| over two integer tensors of one shape."""
     return int((a.long() - b.long()).abs().max().item()) if a.numel() else 0
+
+
+def phase_k3(torch, np, dev, rand_bytes) -> tuple[int, int]:
+    """K3 against its plain version, parity and checksum, exactly: full
+    width with all rows (a 1x1 mesh), every row slice of the padded
+    matrix at shard 2 and 3, ragged N, a recovery matrix. Returns
+    (max_abs_err, cases)."""
+    from ceph_tpu_torch.ec import gf256
+    from ceph_tpu_torch.ops import rs_codec
+    from ceph_tpu_torch.parallel.mesh import shard_operands
+    coding = gf256.reed_sol_van_matrix(K, M)
+    avail = tuple(i for i in range(K + M) if i not in (0, 9, 10))[:K]
+    R = rs_codec.recovery_matrix(coding, avail, (0, 9, 10))
+    full = rand_bytes(BATCH, K, CHUNK)
+    cases = [(coding, 1, 0, full), (R, 1, 0, full)]
+    cases += [(coding, n, j, full) for n in (2, 3) for j in range(n)]
+    cases += [(coding, n, n - 1, rand_bytes(3, K, w))
+              for w in (1, 4097, CHUNK + 3) for n in (1, 2)]
+    worst = 0
+    for Mx, n_shard, part, x in cases:
+        packed, bitm = shard_operands(Mx, n_shard, dev)[part]
+        parity, csum = rs_codec.encode_local(packed, bitm, x)
+        plain, plain_csum = rs_codec.encode_local_plain(bitm, x)
+        err = max(max_abs_err(parity, plain),
+                  abs(int(csum) - int(plain_csum)))
+        worst = max(worst, err)
+        if err:
+            raise AssertionError(f"K3 shard {part}/{n_shard} of a "
+                                 f"{Mx.shape} matrix at {tuple(x.shape)} "
+                                 f"differs from plain: {err}")
+    return worst, len(cases)
+
+
+def phase_mesh(torch, np, dev, rand_bytes) -> list[str]:
+    """The sharded pipeline step (errs == 0, checksum equal to K3's plain
+    version over the whole batch) and mesh_storage_impl under ECUtil
+    (byte-equal to the host codec), for each mesh layout. Returns the
+    layouts run."""
+    from ceph_tpu_torch.ec import gf256
+    from ceph_tpu_torch.native import ec_native
+    from ceph_tpu_torch.ops import rs_codec
+    from ceph_tpu_torch.osd import ec_util
+    from ceph_tpu_torch.parallel import mesh as mesh_lib
+    layouts = [("1x1 over cuda:0", [dev], None),
+               ("2x2 over [cuda:0] x 4", [dev] * 4, 2)]
+    if dev.type == "cuda" and torch.cuda.device_count() >= 2:
+        layouts.append((f"every card ({torch.cuda.device_count()})",
+                        None, None))
+    else:
+        log("phase 6: one card: the mesh over real devices is skipped "
+            "(it runs when torch.cuda.device_count() >= 2)")
+    coding = gf256.reed_sol_van_matrix(K, M)
+    data = rand_bytes(BATCH, K, CHUNK)
+    _, want_csum = rs_codec.encode_local_plain(
+        torch.from_numpy(gf256.matrix_to_bitmatrix(coding)).to(dev), data)
+    sinfo = ec_util.StripeInfo(K, K * CHUNK)
+    n_stripes = 5                          # not a multiple of stripe 2
+    payload = np.random.default_rng(3).integers(
+        0, 256, n_stripes * sinfo.stripe_width, dtype=np.uint8).tobytes()
+    stripes = np.frombuffer(payload, dtype=np.uint8).reshape(
+        n_stripes, K, CHUNK)
+    host_parity = np.empty((n_stripes, M, CHUNK), dtype=np.uint8)
+    for s in range(n_stripes):
+        ec_native.encode(coding, stripes[s], host_parity[s])
+    for label, devs, stripe in layouts:
+        mesh = mesh_lib.make_mesh(devices=devs, stripe=stripe)
+        for erased in MESH_ERASURES:
+            errs, csum = mesh_lib.sharded_pipeline_step_fn(
+                mesh, K, M, erased)(data)
+            if int(errs) != 0 or int(csum) != int(want_csum):
+                raise AssertionError(
+                    f"mesh {label} erased {erased}: {int(errs)} bytes "
+                    f"differ, checksum {int(csum)} != {int(want_csum)}")
+        impl = mesh_lib.mesh_storage_impl(mesh, K, M)
+        shards = {i: bytes(b) for i, b in
+                  ec_util.encode(sinfo, impl, payload).items()}
+        for j in range(M):
+            if shards[K + j] != host_parity[:, j].tobytes():
+                raise AssertionError(f"mesh {label}: parity {j} differs "
+                                     f"from the host codec")
+        for lost in MESH_ERASURES:
+            have = {i: b for i, b in shards.items() if i not in lost}
+            rebuilt = ec_util.decode_shards(sinfo, impl, have, lost)
+            if any(rebuilt[i] != shards[i] for i in lost):
+                raise AssertionError(f"mesh {label}: rebuild {lost}")
+            if ec_util.decode_concat(sinfo, impl, have) != payload:
+                raise AssertionError(f"mesh {label}: degraded read {lost}")
+        log(f"phase 6: mesh {label} {mesh.shape}: pipeline step at "
+            f"{tuple(data.shape)} errs 0 for erasures "
+            f"{list(MESH_ERASURES)}, checksum {int(csum)} equal to K3's "
+            f"plain version over the batch; mesh_storage_impl under ECUtil "
+            f"({n_stripes} stripes): parity equal to the host codec, "
+            f"rebuilds and degraded reads bit-identical")
+    return [label for label, _, _ in layouts]
+
+
+def phase_service(torch, np, devices, **settings) -> dict:
+    """One pass of the offload service over `devices`: every write's
+    encode_async, every sync-path shard's calculate_async, and
+    decode_concat_async / decode_shards_async for the patterns of
+    ERASURES, all concurrent, held byte-equal to the synchronous path.
+    Returns the service's numbers for the pass."""
+    import asyncio
+
+    from ceph_tpu_torch import offload
+    from ceph_tpu_torch.ec.registry import factory
+    from ceph_tpu_torch.osd import ec_util
+    from ceph_tpu_torch.utils.checksummer import Checksummer
+    code = factory("cuda", {"k": str(K), "m": str(M),
+                            "device": str(devices[0])})
+    sinfo = ec_util.StripeInfo(K, K * CHUNK)
+    rng = np.random.default_rng(11)
+    writes = [rng.integers(0, 256, sinfo.stripe_width,
+                           dtype=np.uint8).tobytes()
+              for _ in range(SERVICE_WRITES)]
+    sync = [{i: bytes(b) for i, b in ec_util.encode(sinfo, code, w).items()}
+            for w in writes]
+    host_cs = Checksummer("crc32c", CSUM_BLOCK, use_device=False)
+    want_csums = [host_cs.calculate(sh[i]) for sh in sync
+                  for i in range(K + M)]
+    lost = [ERASURES[w % len(ERASURES)] for w in range(SERVICE_WRITES)]
+    haves = [{i: b for i, b in sh.items() if i not in p}
+             for sh, p in zip(sync, lost)]
+    nbytes = (len(writes) * sinfo.stripe_width               # encode in
+              + sum(len(b) for sh in sync for b in sh.values())  # csums
+              + 2 * sum(K * CHUNK for _ in haves))           # decodes in
+
+    async def drive():
+        svc = offload.get_service(devices)
+        for name, value in settings.items():
+            setattr(svc, name, value)
+        cs = Checksummer("crc32c", CSUM_BLOCK)
+        t0 = time.perf_counter()
+        results = await asyncio.gather(
+            asyncio.gather(*[ec_util.encode_async(sinfo, code, w, service=svc)
+                             for w in writes]),
+            asyncio.gather(*[cs.calculate_async(sh[i], service=svc)
+                             for sh in sync for i in range(K + M)]),
+            asyncio.gather(*[ec_util.decode_concat_async(
+                sinfo, code, h, service=svc) for h in haves]),
+            asyncio.gather(*[ec_util.decode_shards_async(
+                sinfo, code, h, p, service=svc)
+                for h, p in zip(haves, lost)]))
+        wall = time.perf_counter() - t0
+        await svc.drain()
+        return results, wall, dict(svc.stats), svc.device_snapshot()
+
+    from ceph_tpu_torch.ops import crc32c, rs_codec
+    # the references above launched K1 themselves: count from here
+    rs_codec.launches = crc32c.launches = rs_codec.encode_local_launches = 0
+    (enc, csums, concat, rebuilt), wall, stats, devs = asyncio.run(drive())
+    launches = {"gf_bitmatrix": rs_codec.launches,
+                "crc32c_blocks": crc32c.launches,
+                "gf_bitmatrix_csum": rs_codec.encode_local_launches}
+    for w, (got, want) in enumerate(zip(enc, sync)):
+        if {i: bytes(b) for i, b in got.items()} != want:
+            raise AssertionError(f"service encode of write {w} differs")
+    for j, (got, want) in enumerate(zip(csums, want_csums)):
+        if not np.array_equal(got, want):
+            raise AssertionError(f"service checksums of shard {j} differ")
+    if concat != writes:
+        raise AssertionError("service degraded reads differ")
+    for sh, p, got in zip(sync, lost, rebuilt):
+        if any(got[i] != sh[i] for i in p):
+            raise AssertionError(f"service rebuild {p} differs")
+    if stats["fallback_ops"] or stats["breaker_trips"]:
+        raise AssertionError(f"service fell back to the host: {stats}")
+    if "cuda:0" not in devs and devices[0].type == "cuda":
+        raise AssertionError(f"no batch ran on cuda:0: {sorted(devs)}")
+    if stats["coalesced_ops"] <= 0:
+        raise AssertionError(f"nothing coalesced: {stats}")
+    return {"wall_s": wall, "bytes": nbytes, "stats": stats,
+            "launches": launches,
+            "ms_per_batch": wall / stats["batches"] * 1e3,
+            "gb_per_s": nbytes / wall / 1e9,
+            "devices": {d: {"batches": v["batches"], "busy_s": v["busy_s"]}
+                        for d, v in devs.items()}}
+
+
+def service_split(torch, np, dev) -> dict:
+    """Where one service device call of an 8 MiB encode batch goes, each
+    piece timed alone on the host clock (median of 10 ms, results kept
+    alive as the service's callers keep them): the stacking copy into
+    the slot's pinned page, a fresh pinned result buffer, the upload,
+    K1 and download with their synchronize, and the whole staged call."""
+    import statistics as stats_
+
+    from ceph_tpu_torch.ec.registry import factory
+    from ceph_tpu_torch.offload import service as svc_mod
+    code = factory("cuda", {"k": str(K), "m": str(M), "device": str(dev)})
+    slot = svc_mod._DeviceSlot(svc_mod._DeviceState(str(dev), dev), 2)
+    job = np.random.default_rng(5).integers(0, 256, (1, K, CHUNK),
+                                            dtype=np.uint8)
+    page = slot.get_staging(job.nbytes)
+    batch = page[:job.nbytes].view(job.shape)
+    kept = []
+
+    def median_ms(fn):
+        times = []
+        for _ in range(10):
+            t0 = time.perf_counter()
+            kept.append(fn())
+            times.append((time.perf_counter() - t0) * 1e3)
+        return stats_.median(times)
+
+    def transfers():
+        src = batch.to(dev, non_blocking=True)
+        out = code.encode_stripes(src)
+        host = torch.empty(out.shape, dtype=torch.uint8, device="cpu")
+        host.copy_(out)
+        return host
+
+    svc_mod._run_on_slot(slot, code.encode_stripes, batch)     # warm
+    split = {
+        "stack_ms": median_ms(lambda: np.copyto(batch.numpy(), job)),
+        "pinned_result_alloc_ms": median_ms(lambda: torch.empty(
+            (1, M, CHUNK), dtype=torch.uint8, pin_memory=True)),
+        "h2d_k1_d2h_pageable_ms": median_ms(transfers),
+        "staged_call_ms": median_ms(lambda: svc_mod._run_on_slot(
+            slot, code.encode_stripes, batch)),
+    }
+    del kept
+    return split
 
 
 def main() -> int:
@@ -414,13 +660,102 @@ def main() -> int:
     k2_bytes = CRC_BATCH * CSUM_BLOCK + 8 * CRC_BATCH
     k2_bound, k2_by = bound_ms(
         k2_bytes, 2 * (8 * CSUM_BLOCK) * 32 * CRC_BATCH, rates)
+    # -- phase 5: K3 against its plain version --------------------------------
+    t0 = time.perf_counter()
+    k3_err, k3_checks = phase_k3(torch, np, dev, rand_bytes)
+    log(f"phase 5: K3 (gf_bitmatrix_apply_csum) equal to its plain version, "
+        f"parity and checksum, in {k3_checks} cases (full width "
+        f"{BATCH}x{K}x1MiB with all {M} rows and with a recovery matrix; "
+        f"every row slice of the padded matrix at shard 2 and 3; N = 1, "
+        f"4097, 1 MiB + 3 at shard 1 and 2), max_abs_err {k3_err} "
+        f"(tolerance 0), {time.perf_counter() - t0:.1f} s")
+
+    # -- phase 6: the mesh path ------------------------------------------------
+    t0 = time.perf_counter()
+    rs_codec.encode_local_launches = 0
+    layouts = phase_mesh(torch, np, dev, rand_bytes)
+    torch.cuda.synchronize()
+    mesh_launches = rs_codec.encode_local_launches
+    log(f"phase 6: mesh layouts {layouts}, K3 launches {mesh_launches}, "
+        f"{time.perf_counter() - t0:.1f} s")
+    if mesh_launches <= 0:
+        raise AssertionError("the mesh path never launched K3")
+    report["mesh_launches"] = mesh_launches
+
+    # -- phase 7: the offload service (the slice's main path) ------------------
+    passes = [
+        ("default settings", [dev], {}),
+        ("max_batch_bytes 128 MiB, crc_device on", [dev],
+         {"max_batch_bytes": BATCH * K * CHUNK, "crc_device": True}),
+        ("slots [cuda:0, cuda:0], device_shard_bytes 64 MiB, "
+         "max_batch_bytes 128 MiB, crc_device on", [dev, dev],
+         {"max_batch_bytes": BATCH * K * CHUNK, "crc_device": True,
+          "device_shard_bytes": BATCH * K * CHUNK // 2}),
+    ]
+    service = {}
+    for label, devices, settings in passes:
+        res = phase_service(torch, np, devices, **settings)
+        service[label] = res
+        st = res["stats"]
+        log(f"phase 7: service, {label}: {st['jobs']} jobs in "
+            f"{st['batches']} batches ({st['coalesced_ops']} coalesced, "
+            f"{st['mesh_batches']} through the mesh, fallback_ops "
+            f"{st['fallback_ops']}, breaker_trips {st['breaker_trips']}), "
+            f"batches and executor seconds (staged copy in, kernel, copy "
+            f"back) by slot {res['devices']}; {res['wall_s'] * 1e3:.1f} ms "
+            f"for {res['bytes'] / 2**20:.0f} MiB in: "
+            f"{res['ms_per_batch']:.3f} ms per batch, "
+            f"{res['gb_per_s']:.3f} GB/s (host clock); launches "
+            f"{res['launches']}; results byte-equal to the synchronous path")
+    need = [("default settings", "gf_bitmatrix"),
+            ("max_batch_bytes 128 MiB, crc_device on", "gf_bitmatrix"),
+            ("max_batch_bytes 128 MiB, crc_device on", "crc32c_blocks")]
+    last = passes[-1][0]
+    need.append((last, "gf_bitmatrix_csum"))
+    for label, kname in need:
+        if service[label]["launches"][kname] <= 0:
+            raise AssertionError(f"service pass {label!r} never launched "
+                                 f"{kname}")
+    if service[last]["stats"]["mesh_batches"] < 1:
+        raise AssertionError("no service batch went through the mesh")
+    report["service"] = service
+    split = service_split(torch, np, dev)
+    report["service_split"] = split
+    log(f"phase 7: one staged device call of an 8 MiB encode batch, pieces "
+        f"timed alone (median of 10, host clock): stacking copy into the "
+        f"pinned page {split['stack_ms']:.3f} ms, a fresh pinned result "
+        f"buffer {split['pinned_result_alloc_ms']:.3f} ms, upload + K1 + "
+        f"download into pageable memory {split['h2d_k1_d2h_pageable_ms']:.3f}"
+        f" ms, the whole staged call (_run_on_slot) "
+        f"{split['staged_call_ms']:.3f} ms")
+    svc_launches = {kname: sum(r["launches"][kname]
+                               for r in service.values())
+                    for kname in ("gf_bitmatrix", "crc32c_blocks",
+                                  "gf_bitmatrix_csum")}
+
+    # -- phase 8: K3's time ----------------------------------------------------
+    data = ec_benchmark.device_test_data(BATCH, K, CHUNK, dev)
+    from ceph_tpu_torch.parallel.mesh import shard_operands
+    k3_packed, k3_bitm = shard_operands(gf256.reed_sol_van_matrix(K, M),
+                                        1, dev)[0]
+    k3_ms = time_ms(
+        torch, lambda: rs_codec.encode_local(k3_packed, k3_bitm, data), 30)
+    k3_iso_ms = time_isolated_ms(
+        torch, lambda: rs_codec.encode_local(k3_packed, k3_bitm, data), 30)
+    k3_plain_ms = time_ms(
+        torch, lambda: rs_codec.encode_local_plain(k3_bitm, data), 3, 1)
+    k3_bytes = BATCH * (K + M) * CHUNK + 4
+    k3_bound, k3_by = bound_ms(
+        k3_bytes, 2 * (8 * M) * (8 * K) * CHUNK * BATCH, rates)
+    del data
+
     kernels = [
         {"name": "gf_bitmatrix", "route": "cuda",
          "source": "ceph_tpu_torch/ops/csrc/gf_bitmatrix.cu",
          "replaces": "ceph_tpu/ops/rs_codec.py:74",
          "also_replaces": "ceph_tpu/ops/rs_codec.py:55",
          "shape": f"({BATCH},{K},{CHUNK}) -> ({BATCH},{M},{CHUNK}) uint8",
-         "matched": k1_err == 0, "launches": main_launches["gf_bitmatrix"],
+         "matched": k1_err == 0, "launches": svc_launches["gf_bitmatrix"],
          "max_abs_err": k1_err, "tolerance": 0, "ms": k1_ms, "kernel_ms": k1_ms,
          "isolated_ms": k1_iso_ms,
          "plain_ms": k1_plain_ms, "bound_ms": k1_bound, "bound_by": k1_by,
@@ -429,20 +764,31 @@ def main() -> int:
          "source": "ceph_tpu_torch/ops/csrc/crc32c_blocks.cu",
          "replaces": "ceph_tpu/ops/crc32c.py:95",
          "shape": f"({CRC_BATCH},{CSUM_BLOCK}) uint8 -> ({CRC_BATCH},) crc",
-         "matched": k2_err == 0, "launches": main_launches["crc32c_blocks"],
+         "matched": k2_err == 0, "launches": svc_launches["crc32c_blocks"],
          "max_abs_err": k2_err, "tolerance": 0, "ms": k2_ms, "kernel_ms": k2_ms,
          "isolated_ms": k2_iso_ms,
          "plain_ms": k2_plain_ms, "bound_ms": k2_bound, "bound_by": k2_by,
          "library_ms": None},
+        {"name": "gf_bitmatrix_csum", "route": "cuda",
+         "source": "ceph_tpu_torch/ops/csrc/gf_bitmatrix.cu",
+         "replaces": "ceph_tpu/parallel/mesh.py:54",
+         "also_replaces": "ceph_tpu/parallel/mesh.py:96",
+         "shape": f"({BATCH},{K},{CHUNK}) -> ({BATCH},{M},{CHUNK}) uint8 "
+                  f"+ uint32 checksum",
+         "matched": k3_err == 0, "launches": svc_launches["gf_bitmatrix_csum"],
+         "max_abs_err": k3_err, "tolerance": 0, "ms": k3_ms, "kernel_ms": k3_ms,
+         "isolated_ms": k3_iso_ms,
+         "plain_ms": k3_plain_ms, "bound_ms": k3_bound, "bound_by": k3_by,
+         "library_ms": None},
     ]
-    for kr, nbytes in zip(kernels, (k1_bytes, k2_bytes)):
-        log(f"phase 4: {kr['name']} {kr['shape']}: kernel {kr['ms']:.4f} ms "
+    for kr, nbytes in zip(kernels, (k1_bytes, k2_bytes, k3_bytes)):
+        log(f"phase 4/8: {kr['name']} {kr['shape']}: kernel {kr['ms']:.4f} ms "
             f"back to back ({nbytes / kr['ms'] / 1e6:.1f} GB/s; one launch "
             f"alone on an idle stream {kr['isolated_ms']:.4f} ms), bound {kr['bound_ms']:.4f} "
             f"ms by {kr['bound_by']} ({kr['bound_ms'] / kr['ms'] * 100:.1f}% "
-            f"of it), plain {kr['plain_ms']:.3f} ms, launches on the main "
-            f"path {kr['launches']}; no single PyTorch call computes this "
-            f"function, so library_ms is null")
+            f"of it), plain {kr['plain_ms']:.3f} ms, launches in the "
+            f"service phase {kr['launches']}; no single PyTorch call "
+            f"computes this function, so library_ms is null")
     report["kernels"] = kernels
     report["total_s"] = time.perf_counter() - t_start
     log(f"total {report['total_s']:.1f} s on {smi}")

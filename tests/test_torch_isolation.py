@@ -38,7 +38,13 @@ def test_every_module_is_listed():
                      "ceph_tpu_torch.osd.ec_util",
                      "ceph_tpu_torch.utils.checksummer",
                      "ceph_tpu_torch.native.ec_native",
-                     "ceph_tpu_torch.tools.ec_benchmark"):
+                     "ceph_tpu_torch.tools.ec_benchmark",
+                     "ceph_tpu_torch.offload",
+                     "ceph_tpu_torch.offload.service",
+                     "ceph_tpu_torch.parallel.mesh",
+                     "ceph_tpu_torch.utils.dout",
+                     "ceph_tpu_torch.utils.perf_counters",
+                     "ceph_tpu_torch.utils.throttle"):
         assert expected in mods
 
 
@@ -80,8 +86,19 @@ def test_source_has_no_jax_or_reference_import(path):
                 f"{path}:{node.lineno} imports {name}"
 
 
+def _new_service():
+    import asyncio
+
+    from ceph_tpu_torch import offload
+
+    async def make():
+        return offload.get_service()
+    return asyncio.run(make())
+
+
 def _entry_points():
     from ceph_tpu_torch import device
+    from ceph_tpu_torch.parallel import mesh
     from ceph_tpu_torch.ec import gf256
     from ceph_tpu_torch.ec.registry import factory
     from ceph_tpu_torch.ops import crc32c, rs_codec
@@ -99,6 +116,10 @@ def _entry_points():
             "crc32c", 4096, use_device=True).calculate(bytes(4096)),
         "ec_benchmark": lambda: ec_benchmark.run_bench(ec_benchmark.BenchConfig(
             plugin="cuda", mode="batched", size=4096, batch=1)),
+        "offload service": _new_service,
+        "make_mesh": lambda: mesh.make_mesh(),
+        "mesh_storage_impl": lambda: mesh.mesh_storage_impl(
+            mesh.make_mesh(), 4, 2),
     }
 
 
