@@ -10,7 +10,8 @@ equal).
 
 `Crc32cDevice.blocks` is the kernel's wrapper: on a CUDA tensor it
 launches the hand-written kernel in csrc/crc32c_blocks.cu (a table crc per
-warp lane, combined with powers of Z), on a CPU tensor it runs
+warp lane over bank-private tables, combined with powers of Z), on a CPU
+tensor it runs
 `crc32c_blocks_plain`, the reference's contraction against L in plain
 PyTorch. CRC values stay
 int64 inside torch (torch.uint32 lacks most operators) and leave the API

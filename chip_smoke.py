@@ -9,10 +9,13 @@ are integers), drives the main paths through the entry points a user calls
 at the BASELINE configuration (k=8, m=3, 1 MiB chunks) and checks what
 comes out against the host codec:
 
-  phases 0-4  build; K1 and K2 against their plain versions; the OSD's
-              ECUtil encode / degraded read / shard rebuild with the `cuda`
-              plugin, BlueStore checksums, HashInfo; the benchmark and the
-              kernels' times;
+  phases 0-4  build; K1 and K2 against their plain versions (K2 at 1 to
+              2^16 blocks, ragged and off 16-byte alignment); the OSD's
+              ECUtil encode / degraded read / shard rebuild with the
+              `cuda` plugin, BlueStore checksums, HashInfo; the
+              benchmark and the kernels' times (K2 at 256,
+              1024, 2^15 and 2^16 blocks of 4 KiB, beside a torch sum
+              over the same bytes as a read yardstick);
   phase 5     K3 (the sharded encode's per-device step, parity plus
               checksum) against its plain version;
   phase 6     the mesh: the sharded pipeline step and mesh_storage_impl
@@ -54,6 +57,8 @@ CHUNK = 1 << 20                 # 1 MiB chunks
 BATCH = 16                      # stripes per launch (the on-chip batch)
 CSUM_BLOCK = 4096               # BlueStore csum block
 CRC_BATCH = 1 << 16             # blocks per crc launch
+K2_BLOCKS = (1, 7, 256, 1024, 1 << 15, 1 << 16)    # K2 held to plain at
+K2_TIMED = (256, 1024, 1 << 15, 1 << 16)           # and timed at (4 KiB)
 SERVICE_WRITES = 16             # concurrent one-stripe writes per pass
 ERASURES = ((0, 1, 2), (4, 8, 10), (7, 9, 10))
 MESH_ERASURES = ((0, 1, 2), (1, K, K + 2))     # __graft_entry__.py's
@@ -115,6 +120,27 @@ def time_isolated_ms(torch, fn, reps: int, warmup: int = 2) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def profiled_ms(torch, fn, kernel: str, reps: int = 20) -> float | None:
+    """Mean device time of one launch of `kernel` over `reps` calls of fn,
+    from torch.profiler's trace of the card: the kernel's own duration,
+    without the host's launch work. None when the trace holds no launch
+    of it."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    for ev in prof.key_averages():
+        if kernel in ev.key and ev.count:
+            us = getattr(ev, "device_time", None)
+            if us is None:
+                us = getattr(ev, "cuda_time", None)
+            return None if us is None else us / 1e3
+    return None
 
 
 def max_abs_err(a, b) -> int:
@@ -485,6 +511,29 @@ def main() -> int:
     del blocks, got, plain
     crc_full = crc32c.get_device_crc(CSUM_BLOCK, 0xFFFFFFFF, dev)
     big = rand_bytes(CRC_BATCH, CSUM_BLOCK)
+    cases = [(f"B={nb}", crc_full, big[:nb]) for nb in K2_BLOCKS]
+    ragged = rand_bytes(1000, 4100)
+    crc_ragged = crc32c.get_device_crc(4100, 0xFFFFFFFF, dev)
+    # a view 4 bytes past a 16-byte boundary: contiguous, sliced from a
+    # larger buffer, so the kernel takes its byte path
+    raw = rand_bytes(1024 * CSUM_BLOCK + 4)
+    offset = raw[4:].view(1024, CSUM_BLOCK)
+    if offset.data_ptr() % 16 != 4:
+        raise AssertionError("the offset view is not 4 bytes past 16")
+    cases.append(("bs=4100 B=1000", crc_ragged, ragged))
+    cases.append(("base+4 B=1024", crc_full, offset))
+    for label, crc, blocks in cases:
+        got = crc.blocks(blocks)
+        err = max_abs_err(got, crc32c.crc32c_blocks_plain(blocks, crc.seed))
+        k2_err = max(k2_err, err)
+        k2_checks += 1
+        if err:
+            raise AssertionError(f"K2 {label} differs from plain: {err}")
+    empty = crc_full.blocks(big[:0])
+    if tuple(empty.shape) != (0,):
+        raise AssertionError(f"K2 at B=0 returned shape {tuple(empty.shape)}")
+    k2_checks += 1
+    del ragged, raw, offset, got
     got = crc_full.blocks(big)
     idx = torch.randperm(CRC_BATCH, generator=gen, device=dev)[:1024]
     sample = big[idx].cpu().numpy()
@@ -502,7 +551,9 @@ def main() -> int:
                                                        CSUM_BLOCK)):
         raise AssertionError("Checksummer on a card tensor differs from host")
     log(f"phase 2: K2 equal to its plain version in {k2_checks} cases "
-        f"(4096 blocks x bs 512/4096/65536, seeds -1/0/{rand_seed:#x}), "
+        f"(4096 blocks x bs 512/4096/65536, seeds -1/0/{rand_seed:#x}; "
+        f"4 KiB blocks at B = {', '.join(map(str, K2_BLOCKS))}; bs 4100 "
+        f"and a base 4 bytes past a 16-byte boundary; B = 0), "
         f"max_abs_err {k2_err} (tolerance 0); 2^16 x 4 KiB sample of "
         f"1024 equal to the host native crc; a 16-block card tensor "
         f"checksummed by K2 under default routing; "
@@ -653,13 +704,53 @@ def main() -> int:
         k1_bytes, 2 * (8 * M) * (8 * K) * CHUNK * BATCH, rates)
     del data
     blocks = rand_bytes(CRC_BATCH, CSUM_BLOCK)
-    k2_ms = time_ms(torch, lambda: crc_full.blocks(blocks), 30)
-    k2_iso_ms = time_isolated_ms(torch, lambda: crc_full.blocks(blocks), 30)
+    k2_shapes = []
+    for nb in K2_TIMED:
+        x = blocks[:nb]
+        nbytes = nb * CSUM_BLOCK + 8 * nb
+        bound, by = bound_ms(nbytes, 2 * (8 * CSUM_BLOCK) * 32 * nb, rates)
+        ms = time_ms(torch, lambda: crc_full.blocks(x), 30)
+        iso = time_isolated_ms(torch, lambda: crc_full.blocks(x), 30)
+        dev_ms = profiled_ms(torch, lambda: crc_full.blocks(x),
+                             "crc32c_blocks_kernel")
+        torch.cuda.synchronize()
+        h0 = time.perf_counter()
+        for _ in range(200):
+            crc_full.blocks(x)
+        host_us = (time.perf_counter() - h0) / 200 * 1e6
+        torch.cuda.synchronize()
+        k2_shapes.append({
+            "blocks": nb,
+            "ms": ms, "isolated_ms": iso, "profiled_ms": dev_ms,
+            "host_us_per_call": host_us,
+            "bound_ms": bound, "bound_by": by,
+            "share_of_bound": bound / ms, "gb_per_s": nbytes / ms / 1e6})
+        on_card = ("not measured (no launch in the profiler's trace)"
+                   if dev_ms is None else
+                   f"{dev_ms:.4f} ms ({bound / dev_ms * 100:.1f}% of the bound)")
+        log(f"phase 4: K2 {nb} x 4 KiB: "
+            f"{ms:.4f} ms back to back, {iso:.4f} ms alone; bound "
+            f"{bound:.4f} ms by {by}, {bound / ms * 100:.1f}% of it back to "
+            f"back, {bound / iso * 100:.1f}% alone; {nbytes / ms / 1e6:.1f} "
+            f"GB/s; one launch on the card (profiler, mean of 20): "
+            f"{on_card}; host time per wrapper call {host_us:.1f} us (200 "
+            f"calls queued, host clock)")
+    k2_ms, k2_iso_ms = k2_shapes[-1]["ms"], k2_shapes[-1]["isolated_ms"]
+    k2_bound, k2_by = k2_shapes[-1]["bound_ms"], k2_shapes[-1]["bound_by"]
+    k2_bytes = CRC_BATCH * CSUM_BLOCK + 8 * CRC_BATCH
+    words = blocks.view(torch.int64)
+    read_ms = time_ms(torch, lambda: words.sum(), 30)
+    report["read_yardstick"] = {"bytes": blocks.numel(), "ms": read_ms,
+                                "gb_per_s": blocks.numel() / read_ms / 1e6}
+    log(f"phase 4: read yardstick: one torch sum over the same "
+        f"{blocks.numel() / 2**20:.0f} MiB viewed as int64, {read_ms:.4f} "
+        f"ms back to back = {blocks.numel() / read_ms / 1e6:.1f} GB/s "
+        f"({blocks.numel() / rates[0] * 1e3 / read_ms * 100:.1f}% of the "
+        f"HBM rate; not the same "
+        f"function as K2, so not its library_ms)")
     k2_plain_ms = time_ms(
         torch, lambda: crc32c.crc32c_blocks_plain(blocks), 3, 1)
-    k2_bytes = CRC_BATCH * CSUM_BLOCK + 8 * CRC_BATCH
-    k2_bound, k2_by = bound_ms(
-        k2_bytes, 2 * (8 * CSUM_BLOCK) * 32 * CRC_BATCH, rates)
+    del words
     # -- phase 5: K3 against its plain version --------------------------------
     t0 = time.perf_counter()
     k3_err, k3_checks = phase_k3(torch, np, dev, rand_bytes)
@@ -768,7 +859,7 @@ def main() -> int:
          "max_abs_err": k2_err, "tolerance": 0, "ms": k2_ms, "kernel_ms": k2_ms,
          "isolated_ms": k2_iso_ms,
          "plain_ms": k2_plain_ms, "bound_ms": k2_bound, "bound_by": k2_by,
-         "library_ms": None},
+         "library_ms": None, "shapes": k2_shapes},
         {"name": "gf_bitmatrix_csum", "route": "cuda",
          "source": "ceph_tpu_torch/ops/csrc/gf_bitmatrix.cu",
          "replaces": "ceph_tpu/parallel/mesh.py:54",
@@ -782,6 +873,7 @@ def main() -> int:
          "library_ms": None},
     ]
     for kr, nbytes in zip(kernels, (k1_bytes, k2_bytes, k3_bytes)):
+        kr["share_of_bound"] = kr["bound_ms"] / kr["ms"]
         log(f"phase 4/8: {kr['name']} {kr['shape']}: kernel {kr['ms']:.4f} ms "
             f"back to back ({nbytes / kr['ms'] / 1e6:.1f} GB/s; one launch "
             f"alone on an idle stream {kr['isolated_ms']:.4f} ms), bound {kr['bound_ms']:.4f} "

@@ -211,3 +211,114 @@ def test_crc_from_reference(seed):
     np.testing.assert_array_equal(port(blocks), np.asarray(jax_crc(blocks)))
     with pytest.raises(ValueError):
         convert.crc_from_reference(np.asarray(jax_crc._L)[:-8], 1, 512, "cpu")
+
+
+# ---------------------------------------------------------------------------
+# The kernel's algebra, emulated in numpy (ops/csrc/crc32c_blocks.cu)
+# ---------------------------------------------------------------------------
+
+# bs < 32, the byte path (ragged bs), and the 16-byte path at 1, 2 and 4
+# words a lane a round
+EMU_BLOCK_SIZES = (1, 31, 32, 33, 100, 512, 520, 1000, 1024, 2048, 4096, 4100, 8192,
+                   65536)
+EMU_SEEDS = (0xFFFFFFFF, 0, 0x12345678)
+
+
+def _bank_private_tables() -> np.ndarray:
+    """The kernel's shared-memory tables, (4, 256, 32) words [slice][entry]
+    [lane]: uint4 i of the expansion holds words 4i..4i+3, each the flat
+    table entry i >> 3."""
+    flat = crc32c._slice4_tables().reshape(-1)
+    uint4_of_word = np.arange(4 * 256 * 32) // 4
+    return flat[uint4_of_word >> 3].reshape(4, 256, 32)
+
+
+def _staged_words(seg_bytes: np.ndarray) -> np.ndarray:
+    """(B, 32, seg) segment bytes of one warp -> (B, 32, seg // 16, 4)
+    little-endian words in the order each lane reads them from its stage.
+    A round stages q words a lane (q: the largest power of 2 <= 4 dividing
+    seg / 16): copy k = i * 32 + lane moves word m = k % q of segment
+    L = k // q into slot L * q + (m ^ sw(L)), sw(L) = (L >> (3 - log2 q))
+    & (q - 1), and lane L reads slot L * q + (m ^ sw(L)) for m = 0..q-1."""
+    nb, _, seg = seg_bytes.shape
+    words = seg // 16
+    lq = next(e for e in (2, 1, 0) if words % (1 << e) == 0)
+    q = 1 << lq
+    src = seg_bytes.reshape(nb, 32, words, 16)
+    out = np.empty((nb, 32, words, 16), np.uint8)
+    k = np.arange(32 * q)
+    L, m = k >> lq, k & (q - 1)
+    slot = L * q + (m ^ ((L >> (3 - lq)) & (q - 1)))
+    assert sorted(slot) == list(range(32 * q))
+    for g in range(0, 32 * q, 8):          # any 8 copies: 8 bank groups
+        assert len(set(slot[g:g + 8] % 8)) == 8
+    lanes = np.arange(32)
+    for r in range(words // q):
+        stage = np.zeros((nb, 32 * q, 16), np.uint8)
+        stage[:, slot] = src[:, L, r * q + m]
+        for mm in range(q):
+            read = lanes * q + (mm ^ ((lanes >> (3 - lq)) & (q - 1)))
+            if q > 1:                       # any 8 lanes: 8 bank groups
+                assert all(len(set(read[g:g + 8] % 8)) == 8
+                           for g in range(0, 32, 8))
+            out[:, :, r * q + mm] = stage[:, read]
+    return out.view("<u4").reshape(nb, 32, words, 4)
+
+
+def emulate_k2(blocks: np.ndarray, seed: int) -> np.ndarray:
+    """(B, bs) uint8 -> (B,) uint32 through the kernel's algebra: 32
+    segments of ceil(bs / 32) bytes, segment l on lane l; slice-by-4 over
+    staged 16-byte words when bs is a multiple of 512 (the kernel's 16-byte
+    path), a byte loop otherwise; each lane's crc_0 advanced by
+    `_lane_advance(bs)`, XORed over the lanes and with the seed constant."""
+    nb, bs = blocks.shape
+    T = _bank_private_tables()
+    np.testing.assert_array_equal(T[:, :, 7], crc32c._slice4_tables())
+    seg = -(-bs // 32)
+    lane = np.arange(32)
+    crc = np.zeros((nb, 32), np.uint32)
+    if bs % 512 == 0:
+        words = _staged_words(blocks.reshape(nb, 32, seg))
+        np.testing.assert_array_equal(             # each lane reads its own
+            words.reshape(nb, 32, seg // 4),       # segment, in order
+            blocks.reshape(nb, 32, seg).view("<u4"))
+        for j in range(seg // 16):
+            for w in range(4):
+                c = crc ^ words[:, :, j, w]
+                crc = (T[3][c & 0xFF, lane] ^ T[2][(c >> 8) & 0xFF, lane]
+                       ^ T[1][(c >> 16) & 0xFF, lane] ^ T[0][c >> 24, lane])
+    else:
+        padded = np.zeros((nb, 32 * seg), np.uint8)
+        padded[:, :bs] = blocks
+        segs = padded.reshape(nb, 32, seg)
+        for i in range(seg):
+            active = lane * seg + i < bs
+            stepped = T[0][(crc ^ segs[:, :, i]) & 0xFF, lane] ^ (crc >> 8)
+            crc = np.where(active, stepped, crc)
+    A = crc32c._lane_advance(bs)                           # (32 bit, 32 lane)
+    bits = (crc[:, :, None] >> np.arange(32, dtype=np.uint32)) & 1
+    advanced = np.bitwise_xor.reduce(
+        np.where(bits == 1, A.T[None], np.uint32(0)), axis=2)   # (B, 32)
+    return (np.bitwise_xor.reduce(advanced, axis=1)
+            ^ np.uint32(crc32c._seed_const(bs, seed))).astype(np.uint32)
+
+
+@functools.lru_cache(maxsize=None)
+def _emu_case(bs: int, seed: int) -> tuple[np.ndarray, np.ndarray]:
+    blocks = np.random.default_rng(bs + 1).integers(0, 256, (5, bs),
+                                                    dtype=np.uint8)
+    jax_crc = np.asarray(ref_crc._crc_blocks_jit(
+        jnp.asarray(crc32c.crc_bitmatrix(bs).astype(np.int8)),
+        jnp.uint32(ref_crc._seed_const(bs, seed)), jnp.asarray(blocks), bs))
+    return blocks, jax_crc
+
+
+@pytest.mark.parametrize("seed", EMU_SEEDS)
+@pytest.mark.parametrize("bs", EMU_BLOCK_SIZES)
+def test_emulated_kernel_equals_jax_and_native(bs, seed):
+    blocks, jax_crc = _emu_case(bs, seed)
+    got = emulate_k2(blocks, seed)
+    np.testing.assert_array_equal(got, jax_crc)
+    np.testing.assert_array_equal(got, ref_native.crc32c_blocks(blocks, bs,
+                                                                seed))
+
