@@ -26,7 +26,7 @@ import torch
 CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
 BUILD_DIR = os.path.join(
     os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "_build")
-KERNELS = ("gf_bitmatrix", "crc32c_blocks")
+KERNELS = ("gf_bitmatrix", "gf_bitmatrix_csum", "crc32c_blocks")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 

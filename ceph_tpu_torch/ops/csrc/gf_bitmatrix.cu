@@ -30,19 +30,8 @@
 // N, every row goes through the byte path, which masks the ragged edge.
 // All offsets are 64-bit.
 //
-// K3, the second C entry (gf_bitmatrix_apply_csum), is the same loop with
-// CSUM on. Replaces: ceph_tpu/parallel/mesh.py `_encode_local` (:54) and
-// the checksum beside it in `sharded_encode_fn` (:96-97): one device's
-// partial encode over its slice of the (zero-padded) parity rows, plus
-// sum(parity * 2654435761) mod 2^32, which the mesh then sums over
-// devices (the TPU program's `psum`). Bound the same as K1: it moves the
-// same bytes plus 4. Per word written, each thread adds the word's four
-// bytes into a 32-bit register with __dp4a; the block reduces those over
-// its warps and does one atomicAdd of (sum * 2654435761) on an unsigned
-// int. Unsigned arithmetic wraps mod 2^32 and multiplication distributes
-// over it, so the result is exact in any order. Bytes past a ragged N
-// are zero in the accumulators and add nothing; padding rows (all-zero
-// matrix rows) are computed, written and add nothing.
+// K3, the sharded encode's parity-plus-checksum step, has its own kernel
+// in gf_bitmatrix_csum.cu.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -51,15 +40,13 @@ namespace {
 
 constexpr int kThreads = 256;
 constexpr long long kMaxBlocks = 8192;
-constexpr uint32_t kCsumMul = 2654435761u;
 
-template <int RG, bool VEC, bool CSUM>
+template <int RG, bool VEC>
 __global__ void __launch_bounds__(kThreads)
 gf_bitmatrix_kernel(const uint8_t* __restrict__ data,    // (b, k, n)
                     const uint8_t* __restrict__ packed,  // (r, k, 8)
                     uint8_t* __restrict__ out,           // (b, r, n)
-                    long long b, long long k, long long n, long long r,
-                    uint32_t* __restrict__ csum) {       // CSUM only
+                    long long b, long long k, long long n, long long r) {
   extern __shared__ uint32_t splat[];  // [k * 8][RG]
   const long long row0 = (long long)blockIdx.y * RG;
   for (long long t = threadIdx.x; t < k * 8 * RG; t += blockDim.x) {
@@ -76,7 +63,6 @@ gf_bitmatrix_kernel(const uint8_t* __restrict__ data,    // (b, k, n)
   const long long per_stripe = (n + kCols - 1) / kCols;
   const long long items = b * per_stripe;
   const long long stride = (long long)gridDim.x * blockDim.x;
-  [[maybe_unused]] uint32_t bsum = 0u;  // CSUM: bytes written, mod 2^32
   for (long long it = (long long)blockIdx.x * blockDim.x + threadIdx.x;
        it < items; it += stride) {
     const long long s = it / per_stripe;
@@ -126,33 +112,14 @@ gf_bitmatrix_kernel(const uint8_t* __restrict__ data,    // (b, k, n)
         for (int q = 0; q < 4; ++q)
           if (col + q < n) dst[q] = (uint8_t)(acc[g][0] >> (8 * q));
       }
-      if constexpr (CSUM) {
-#pragma unroll
-        for (int q = 0; q < W; ++q) bsum = __dp4a(acc[g][q], 0x01010101u, bsum);
-      }
-    }
-  }
-
-  if constexpr (CSUM) {
-    __shared__ uint32_t warp_sums[kThreads / 32];
-#pragma unroll
-    for (int off = 16; off; off >>= 1)
-      bsum += __shfl_down_sync(0xffffffffu, bsum, off);
-    if ((threadIdx.x & 31) == 0) warp_sums[threadIdx.x >> 5] = bsum;
-    __syncthreads();
-    if (threadIdx.x == 0) {
-      uint32_t total = 0u;
-#pragma unroll
-      for (int w = 0; w < kThreads / 32; ++w) total += warp_sums[w];
-      atomicAdd(csum, total * kCsumMul);
     }
   }
 }
 
-template <int RG, bool CSUM>
+template <int RG>
 cudaError_t launch(const uint8_t* data, const uint8_t* packed, uint8_t* out,
                    long long b, long long k, long long n, long long r,
-                   bool vec, uint32_t* csum, cudaStream_t stream) {
+                   bool vec, cudaStream_t stream) {
   const long long cols = vec ? 16 : 4;
   const long long items = b * ((n + cols - 1) / cols);
   long long blocks = (items + kThreads - 1) / kThreads;
@@ -160,32 +127,12 @@ cudaError_t launch(const uint8_t* data, const uint8_t* packed, uint8_t* out,
   const dim3 grid((unsigned)blocks, (unsigned)((r + RG - 1) / RG));
   const size_t smem = (size_t)k * 8 * RG * sizeof(uint32_t);
   if (vec)
-    gf_bitmatrix_kernel<RG, true, CSUM><<<grid, kThreads, smem, stream>>>(
-        data, packed, out, b, k, n, r, csum);
+    gf_bitmatrix_kernel<RG, true><<<grid, kThreads, smem, stream>>>(
+        data, packed, out, b, k, n, r);
   else
-    gf_bitmatrix_kernel<RG, false, CSUM><<<grid, kThreads, smem, stream>>>(
-        data, packed, out, b, k, n, r, csum);
+    gf_bitmatrix_kernel<RG, false><<<grid, kThreads, smem, stream>>>(
+        data, packed, out, b, k, n, r);
   return cudaGetLastError();
-}
-
-template <bool CSUM>
-int apply(const void* data, const void* packed, void* out, long long b,
-          long long k, long long n, long long r, void* csum, void* stream) {
-  if (b <= 0 || n <= 0 || r <= 0) return (int)cudaSuccess;
-  if (k <= 0 || k > 255) return (int)cudaErrorInvalidValue;
-  const bool vec = n % 16 == 0 && (uintptr_t)data % 16 == 0 &&
-                   (uintptr_t)out % 16 == 0;
-  const auto* d = static_cast<const uint8_t*>(data);
-  const auto* p = static_cast<const uint8_t*>(packed);
-  auto* o = static_cast<uint8_t*>(out);
-  auto* c = static_cast<uint32_t*>(csum);
-  auto st = static_cast<cudaStream_t>(stream);
-  switch (r >= 4 ? 4 : (int)r) {
-    case 1: return (int)launch<1, CSUM>(d, p, o, b, k, n, r, vec, c, st);
-    case 2: return (int)launch<2, CSUM>(d, p, o, b, k, n, r, vec, c, st);
-    case 3: return (int)launch<3, CSUM>(d, p, o, b, k, n, r, vec, c, st);
-    default: return (int)launch<4, CSUM>(d, p, o, b, k, n, r, vec, c, st);
-  }
 }
 
 }  // namespace
@@ -198,19 +145,20 @@ extern "C" {
 int gf_bitmatrix_apply(const void* data, const void* packed, void* out,
                        long long b, long long k, long long n, long long r,
                        void* stream) {
-  return apply<false>(data, packed, out, b, k, n, r, nullptr, stream);
-}
-
-// K3: the same, and *csum (one uint32 on the same device) = the sum of
-// every byte written, times 2654435761, mod 2^32. *csum is zeroed on
-// `stream` first.
-int gf_bitmatrix_apply_csum(const void* data, const void* packed, void* out,
-                            long long b, long long k, long long n,
-                            long long r, void* csum, void* stream) {
-  const cudaError_t rc = cudaMemsetAsync(csum, 0, sizeof(uint32_t),
-                                         static_cast<cudaStream_t>(stream));
-  if (rc != cudaSuccess) return (int)rc;
-  return apply<true>(data, packed, out, b, k, n, r, csum, stream);
+  if (b <= 0 || n <= 0 || r <= 0) return (int)cudaSuccess;
+  if (k <= 0 || k > 255) return (int)cudaErrorInvalidValue;
+  const bool vec = n % 16 == 0 && (uintptr_t)data % 16 == 0 &&
+                   (uintptr_t)out % 16 == 0;
+  const auto* d = static_cast<const uint8_t*>(data);
+  const auto* p = static_cast<const uint8_t*>(packed);
+  auto* o = static_cast<uint8_t*>(out);
+  auto st = static_cast<cudaStream_t>(stream);
+  switch (r >= 4 ? 4 : (int)r) {
+    case 1: return (int)launch<1>(d, p, o, b, k, n, r, vec, st);
+    case 2: return (int)launch<2>(d, p, o, b, k, n, r, vec, st);
+    case 3: return (int)launch<3>(d, p, o, b, k, n, r, vec, st);
+    default: return (int)launch<4>(d, p, o, b, k, n, r, vec, st);
+  }
 }
 
 const char* gf_bitmatrix_strerror(int rc) {

@@ -16,9 +16,8 @@ buckets batches.
 `encode_local` is K3's wrapper, the per-device step of the sharded encode
 (ceph_tpu/parallel/mesh.py `_encode_local` and its checksum): the same
 apply over one device's slice of parity rows, which also returns
-sum(parity * 2654435761) mod 2^32, computed inside the kernel
-(`gf_bitmatrix_apply_csum` in the same source). `encode_local_plain` is
-its plain version.
+sum(parity * 2654435761) mod 2^32, both from one launch of the kernel in
+csrc/gf_bitmatrix_csum.cu. `encode_local_plain` is its plain version.
 
 Every launch goes to the device the tensor lies on, whatever the calling
 thread's current device is.
@@ -28,6 +27,7 @@ from __future__ import annotations
 import collections
 import ctypes
 import functools
+import threading
 
 import numpy as np
 import torch
@@ -48,9 +48,18 @@ _KERNEL = "gf_bitmatrix"
 _APPLY_ARGS = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
                ctypes.c_longlong, ctypes.c_longlong, ctypes.c_longlong,
                ctypes.c_longlong]
-_SIGNATURES = {"gf_bitmatrix_apply": _APPLY_ARGS + [ctypes.c_void_p],
-               "gf_bitmatrix_apply_csum": _APPLY_ARGS + [ctypes.c_void_p,
-                                                         ctypes.c_void_p]}
+_SIGNATURES = {"gf_bitmatrix_apply": _APPLY_ARGS + [ctypes.c_void_p]}
+_CSUM_KERNEL = "gf_bitmatrix_csum"
+_CSUM_SIGNATURES = {"gf_bitmatrix_csum_run": _APPLY_ARGS + [
+    ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p, ctypes.c_void_p]}
+
+# K3's scratch per (device, stream): word 0 the ticket counter, zeroed once
+# here and left zero by every launch; then one partial per CTA. A launch
+# has at most 8 CTAs of 256 threads on each SM, so 2048 slots cover any
+# card of up to 256 SMs; the kernel caps its grid at the slots given.
+_CSUM_SLOTS = 2048
+_csum_scratch: dict[tuple[torch.device, int], torch.Tensor] = {}
+_csum_lock = threading.Lock()
 
 # The plain version keeps its (b, 8k, width) plane tensor under this many
 # bytes by working through N in chunks.
@@ -155,14 +164,29 @@ def encode_local_plain(bitmatrix_local: torch.Tensor,
     return parity, csum
 
 
+def _scratch_for(device: torch.device, stream: ctypes.c_void_p,
+                 groups: int) -> torch.Tensor:
+    """K3's scratch for launches on `stream` of `device`, with at least
+    `groups` partial slots (one CTA per row group at the least). Launches
+    on one stream run in order, so they can share it."""
+    key = (device, stream.value)
+    with _csum_lock:
+        scratch = _csum_scratch.get(key)
+        if scratch is None or scratch.numel() <= groups:
+            scratch = _csum_scratch[key] = torch.zeros(
+                1 + max(_CSUM_SLOTS, groups), dtype=torch.int32,
+                device=device)
+    return scratch
+
+
 def encode_local(packed_local: torch.Tensor, bitmatrix_local: torch.Tensor,
                  data: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     """K3's wrapper: data (b, k, N) uint8 -> (parity (b, r, N) uint8,
     0-d int64 checksum on data's device), the operands being one
     device's row slice of the padded matrix (`packed_local` (r, k, 8)
     for the kernel, `bitmatrix_local` (8r, 8k) for the plain version).
-    A CUDA tensor launches the kernel, which writes parity and checksum
-    in one pass; a CPU tensor takes the plain version."""
+    A CUDA tensor launches the kernel once, which writes parity and
+    checksum; a CPU tensor takes the plain version."""
     global encode_local_launches
     _check_operands(packed_local, bitmatrix_local, data)
     if data.device.type == "cpu":
@@ -170,16 +194,20 @@ def encode_local(packed_local: torch.Tensor, bitmatrix_local: torch.Tensor,
     r, k, _ = packed_local.shape
     b, _, n = data.shape
     out = torch.empty((b, r, n), dtype=torch.uint8, device=data.device)
-    csum = torch.empty(1, dtype=torch.int32, device=data.device)
-    lib = _build.load(_KERNEL, _SIGNATURES)
+    if b == 0 or n == 0 or r == 0:
+        return out, torch.zeros((), dtype=torch.int64, device=data.device)
+    csum = torch.empty((), dtype=torch.int64, device=data.device)
+    lib = _build.load(_CSUM_KERNEL, _CSUM_SIGNATURES)
     with torch.cuda.device(data.device):
-        rc = lib.gf_bitmatrix_apply_csum(
+        stream = _build.stream(data.device)
+        scratch = _scratch_for(data.device, stream, -(-r // 4))
+        rc = lib.gf_bitmatrix_csum_run(
             _build.ptr(data), _build.ptr(packed_local), _build.ptr(out),
-            b, k, n, r, _build.ptr(csum), _build.stream(data.device))
-    _build.check(lib, _KERNEL, rc)
+            b, k, n, r, _build.ptr(scratch), scratch.numel() - 1,
+            _build.ptr(csum), stream)
+    _build.check(lib, _CSUM_KERNEL, rc)
     encode_local_launches += 1
-    # the kernel's uint32 bits, widened (torch's uint32 has few operators)
-    return out, csum[0].to(torch.int64) & 0xFFFFFFFF
+    return out, csum
 
 
 class MatrixCodec:

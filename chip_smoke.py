@@ -29,7 +29,9 @@ comes out against the host codec:
               two slots on one card with a mesh threshold low enough that
               a batch goes through K3; no batch may reach the host
               fallback;
-  phase 8     K3's time.
+  phase 8     K3's time at the 1x1 mesh's (16,8,1 MiB) -> (16,3) and
+              the 2x2 mesh's per-device (8,8,1 MiB) -> (8,2), and the
+              device operations one call runs (must be 1).
 
 Each path's launch counts are set to 0 just before it and read just after;
 a kernel of the path launched no time fails the run. Nothing is caught: any
@@ -143,6 +145,21 @@ def profiled_ms(torch, fn, kernel: str, reps: int = 20) -> float | None:
     return None
 
 
+def device_ops_per_call(torch, fn, reps: int = 10) -> tuple[float, list]:
+    """Device operations (kernels, memsets, copies) the profiler's trace
+    of the card holds per call of fn, and their names."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    ops = [e for e in prof.events()
+           if e.device_type == torch.autograd.DeviceType.CUDA]
+    return len(ops) / reps, sorted({e.name for e in ops})
+
+
 def max_abs_err(a, b) -> int:
     """Largest |a - b| over two integer tensors of one shape."""
     return int((a.long() - b.long()).abs().max().item()) if a.numel() else 0
@@ -151,8 +168,11 @@ def max_abs_err(a, b) -> int:
 def phase_k3(torch, np, dev, rand_bytes) -> tuple[int, int]:
     """K3 against its plain version, parity and checksum, exactly: full
     width with all rows (a 1x1 mesh), every row slice of the padded
-    matrix at shard 2 and 3, ragged N, a recovery matrix. Returns
-    (max_abs_err, cases)."""
+    matrix at shard 2 and 3, ragged N, a recovery matrix; r = 1, 2, 4, 5
+    (one and two row groups), k = 1, 3, 20, b = 1, data at a 1-byte
+    offset into its storage, an all-zero slice (checksum 0), and two
+    launches back to back on one stream (the second must find the ticket
+    counter reset). Returns (max_abs_err, cases)."""
     from ceph_tpu_torch.ec import gf256
     from ceph_tpu_torch.ops import rs_codec
     from ceph_tpu_torch.parallel.mesh import shard_operands
@@ -160,22 +180,48 @@ def phase_k3(torch, np, dev, rand_bytes) -> tuple[int, int]:
     avail = tuple(i for i in range(K + M) if i not in (0, 9, 10))[:K]
     R = rs_codec.recovery_matrix(coding, avail, (0, 9, 10))
     full = rand_bytes(BATCH, K, CHUNK)
-    cases = [(coding, 1, 0, full), (R, 1, 0, full)]
-    cases += [(coding, n, j, full) for n in (2, 3) for j in range(n)]
-    cases += [(coding, n, n - 1, rand_bytes(3, K, w))
+    rng = np.random.default_rng(31)
+
+    def operands(Mx, n_shard=1, part=0):
+        return shard_operands(Mx, n_shard, dev)[part]
+
+    cases = [("full width", operands(coding), full),
+             ("recovery matrix", operands(R), full)]
+    cases += [(f"shard {j}/{n}", operands(coding, n, j), full)
+              for n in (2, 3) for j in range(n)]
+    cases += [(f"shard {n - 1}/{n} N={w}", operands(coding, n, n - 1),
+               rand_bytes(3, K, w))
               for w in (1, 4097, CHUNK + 3) for n in (1, 2)]
+    cases += [(f"r={r}", operands(rng.integers(0, 256, (r, K),
+                                                dtype=np.uint8)),
+               rand_bytes(3, K, 65536)) for r in (1, 2, 4, 5)]
+    cases += [(f"k={k}", operands(rng.integers(0, 256, (M, k),
+                                                dtype=np.uint8)),
+               rand_bytes(2, k, 65536 + 16)) for k in (1, 3, 20)]
+    cases.append(("b=1", operands(coding), full[:1]))
+    unaligned = rand_bytes(3 * K * 4096 + 1)[1:].view(3, K, 4096)
+    if unaligned.data_ptr() % 16 == 0:
+        raise AssertionError("the offset view is 16-byte aligned")
+    cases.append(("base + 1 byte", operands(coding), unaligned))
+    zero = operands(coding, 4, 3)               # the padding row of m=3 / 4
+    if zero[0].any():
+        raise AssertionError("shard 3/4 of a 3-row matrix is not all zero")
+    cases.append(("all-zero slice", zero, full))
     worst = 0
-    for Mx, n_shard, part, x in cases:
-        packed, bitm = shard_operands(Mx, n_shard, dev)[part]
+    for label, (packed, bitm), x in cases:
         parity, csum = rs_codec.encode_local(packed, bitm, x)
+        again, csum2 = rs_codec.encode_local(packed, bitm, x)  # same stream
         plain, plain_csum = rs_codec.encode_local_plain(bitm, x)
-        err = max(max_abs_err(parity, plain),
-                  abs(int(csum) - int(plain_csum)))
+        err = max(max_abs_err(parity, plain), max_abs_err(again, plain),
+                  abs(int(csum) - int(plain_csum)),
+                  abs(int(csum2) - int(plain_csum)))
         worst = max(worst, err)
         if err:
-            raise AssertionError(f"K3 shard {part}/{n_shard} of a "
-                                 f"{Mx.shape} matrix at {tuple(x.shape)} "
-                                 f"differs from plain: {err}")
+            raise AssertionError(f"K3 {label} at {tuple(x.shape)} -> r="
+                                 f"{packed.shape[0]} differs from plain: "
+                                 f"{err}")
+        if label == "all-zero slice" and int(csum) != 0:
+            raise AssertionError(f"K3 all-zero slice checksum {int(csum)}")
     return worst, len(cases)
 
 
@@ -754,12 +800,14 @@ def main() -> int:
     # -- phase 5: K3 against its plain version --------------------------------
     t0 = time.perf_counter()
     k3_err, k3_checks = phase_k3(torch, np, dev, rand_bytes)
-    log(f"phase 5: K3 (gf_bitmatrix_apply_csum) equal to its plain version, "
-        f"parity and checksum, in {k3_checks} cases (full width "
-        f"{BATCH}x{K}x1MiB with all {M} rows and with a recovery matrix; "
-        f"every row slice of the padded matrix at shard 2 and 3; N = 1, "
-        f"4097, 1 MiB + 3 at shard 1 and 2), max_abs_err {k3_err} "
-        f"(tolerance 0), {time.perf_counter() - t0:.1f} s")
+    log(f"phase 5: K3 (gf_bitmatrix_csum_run) equal to its plain version, "
+        f"parity and checksum, in {k3_checks} cases, each launched twice "
+        f"back to back (full width {BATCH}x{K}x1MiB with all {M} rows and "
+        f"with a recovery matrix; every row slice of the padded matrix at "
+        f"shard 2 and 3; N = 1, 4097, 1 MiB + 3 at shard 1 and 2; r = 1, "
+        f"2, 4, 5; k = 1, 3, 20; b = 1; a base 1 byte past alignment; an "
+        f"all-zero slice, checksum 0), max_abs_err {k3_err} (tolerance 0), "
+        f"{time.perf_counter() - t0:.1f} s")
 
     # -- phase 6: the mesh path ------------------------------------------------
     t0 = time.perf_counter()
@@ -824,20 +872,60 @@ def main() -> int:
                     for kname in ("gf_bitmatrix", "crc32c_blocks",
                                   "gf_bitmatrix_csum")}
 
-    # -- phase 8: K3's time ----------------------------------------------------
-    data = ec_benchmark.device_test_data(BATCH, K, CHUNK, dev)
+    # -- phase 8: K3's time --------------------------------------------------
     from ceph_tpu_torch.parallel.mesh import shard_operands
-    k3_packed, k3_bitm = shard_operands(gf256.reed_sol_van_matrix(K, M),
-                                        1, dev)[0]
-    k3_ms = time_ms(
-        torch, lambda: rs_codec.encode_local(k3_packed, k3_bitm, data), 30)
-    k3_iso_ms = time_isolated_ms(
-        torch, lambda: rs_codec.encode_local(k3_packed, k3_bitm, data), 30)
+    coding = gf256.reed_sol_van_matrix(K, M)
+    k3_shapes = []
+    # the 1x1 mesh's call, and the 2x2 mesh's per-device call: half the
+    # stripes, one of two shard columns (rows 0-1 of the padded 4)
+    for b, n_shard in ((BATCH, 1), (BATCH // 2, 2)):
+        data = ec_benchmark.device_test_data(b, K, CHUNK, dev)
+        packed, bitm = shard_operands(coding, n_shard, dev)[0]
+        r = packed.shape[0]
+
+        def call():
+            return rs_codec.encode_local(packed, bitm, data)
+        ms = time_ms(torch, call, 30)
+        iso = time_isolated_ms(torch, call, 30)
+        dev_ms = profiled_ms(torch, call, "gf_bitmatrix_csum_kernel")
+        per_call, names = device_ops_per_call(torch, call)
+        torch.cuda.synchronize()
+        h0 = time.perf_counter()
+        for _ in range(200):
+            call()
+        host_us = (time.perf_counter() - h0) / 200 * 1e6
+        torch.cuda.synchronize()
+        if per_call != 1:
+            raise AssertionError(f"one encode_local call ran {per_call} "
+                                 f"device operations: {names}")
+        nbytes = b * (K + r) * CHUNK + 8
+        bound, by = bound_ms(nbytes, 2 * (8 * r) * (8 * K) * CHUNK * b, rates)
+        k3_shapes.append({
+            "shape": f"({b},{K},{CHUNK}) -> ({b},{r},{CHUNK})",
+            "ms": ms, "isolated_ms": iso, "profiled_ms": dev_ms,
+            "device_ops_per_call": per_call, "host_us_per_call": host_us,
+            "bound_ms": bound,
+            "bound_by": by, "share_of_bound": bound / ms,
+            "gb_per_s": nbytes / ms / 1e6})
+        on_card = ("not measured (no launch in the profiler's trace)"
+                   if dev_ms is None else
+                   f"{dev_ms:.4f} ms ({bound / dev_ms * 100:.1f}% of the "
+                   f"bound)")
+        log(f"phase 8: K3 {k3_shapes[-1]['shape']}: {ms:.4f} ms back to "
+            f"back through the wrapper ({bound / ms * 100:.1f}% of the "
+            f"{bound:.4f} ms bound by {by}), {iso:.4f} ms alone; one launch "
+            f"on the card (profiler, mean of 20): {on_card}; device "
+            f"operations per call {per_call:g} ({', '.join(names)}); host "
+            f"time per wrapper call {host_us:.1f} us (200 calls queued, "
+            f"host clock)")
+        del data
+    k3_ms, k3_iso_ms = k3_shapes[0]["ms"], k3_shapes[0]["isolated_ms"]
+    k3_bound, k3_by = k3_shapes[0]["bound_ms"], k3_shapes[0]["bound_by"]
+    k3_bytes = BATCH * (K + M) * CHUNK + 8
+    data = ec_benchmark.device_test_data(BATCH, K, CHUNK, dev)
+    k3_packed, k3_bitm = shard_operands(coding, 1, dev)[0]
     k3_plain_ms = time_ms(
         torch, lambda: rs_codec.encode_local_plain(k3_bitm, data), 3, 1)
-    k3_bytes = BATCH * (K + M) * CHUNK + 4
-    k3_bound, k3_by = bound_ms(
-        k3_bytes, 2 * (8 * M) * (8 * K) * CHUNK * BATCH, rates)
     del data
 
     kernels = [
@@ -861,16 +949,16 @@ def main() -> int:
          "plain_ms": k2_plain_ms, "bound_ms": k2_bound, "bound_by": k2_by,
          "library_ms": None, "shapes": k2_shapes},
         {"name": "gf_bitmatrix_csum", "route": "cuda",
-         "source": "ceph_tpu_torch/ops/csrc/gf_bitmatrix.cu",
+         "source": "ceph_tpu_torch/ops/csrc/gf_bitmatrix_csum.cu",
          "replaces": "ceph_tpu/parallel/mesh.py:54",
          "also_replaces": "ceph_tpu/parallel/mesh.py:96",
          "shape": f"({BATCH},{K},{CHUNK}) -> ({BATCH},{M},{CHUNK}) uint8 "
-                  f"+ uint32 checksum",
+                  f"+ int64 checksum",
          "matched": k3_err == 0, "launches": svc_launches["gf_bitmatrix_csum"],
          "max_abs_err": k3_err, "tolerance": 0, "ms": k3_ms, "kernel_ms": k3_ms,
          "isolated_ms": k3_iso_ms,
          "plain_ms": k3_plain_ms, "bound_ms": k3_bound, "bound_by": k3_by,
-         "library_ms": None},
+         "library_ms": None, "shapes": k3_shapes},
     ]
     for kr, nbytes in zip(kernels, (k1_bytes, k2_bytes, k3_bytes)):
         kr["share_of_bound"] = kr["bound_ms"] / kr["ms"]
