@@ -11,8 +11,10 @@ card is present unless the caller asks for the CPU, where each kernel's
 wrapper runs the kernel's plain PyTorch version instead.
 
 Subpackages (same layout as ceph_tpu):
-  ec      erasure-code plugin layer: interface, registry, jerasure
-          matrix techniques, the `cuda` plugin
+  ec      erasure-code plugin layer: interface, registry, every plugin
+          of the reference (jerasure with its matrix and bitmatrix
+          techniques, isa, shec, lrc, clay) and `cuda`, the counterpart
+          of its `tpu` plugin
   ops     device kernels: GF(2^8) bit-matrix apply (K1), crc32c over
           fixed-size blocks (K2), the sharded encode's per-device step
           with its checksum (K3), all hand-written CUDA for sm_90a
@@ -24,7 +26,8 @@ Subpackages (same layout as ceph_tpu):
   utils   Checksummer (BlueStore per-block checksums); copies of dout,
           perf counters and the Throttle
   native  ctypes loader for the repo's host C++ codec and crc32c
-  tools   ec_benchmark
+  tools   ec_benchmark, ec_tool, ec_non_regression (the corpus check),
+          gen_bitmatrix_tables
 """
 
 __version__ = "0.1.0"

@@ -1,12 +1,17 @@
 """Carry the reference's parameters across to the port.
 
-For this system the "weights" are the coding matrix with its bitmatrix
-(the bit-matrix kernel's operand) and the CRC operator L with its seed
-constant (the crc kernel's). Each function takes what the JAX package
-holds, as numpy, builds the port's object on `device`, and checks that
-the port derives the same parameters itself.
+For this system the "weights" are each plugin's generator (the coding
+matrix with its bitmatrix, the bit-matrix kernel's operand; a GF(2)
+generator, a shingled matrix, an inner code's or each layer's matrix
+for the plugins built on other codes) and the CRC operator L with its
+seed constant (the crc kernel's). Each function takes what the JAX
+package holds, as numpy, builds the port's object on `device`, and
+checks that the port derives the same parameters itself.
 """
 from __future__ import annotations
+
+import json
+from typing import Mapping
 
 import numpy as np
 import torch
@@ -55,19 +60,79 @@ def crc_from_reference(L: np.ndarray, const: int, block_size: int,
     return port
 
 
-def plugin_from_reference(profile: dict, coding_matrix: np.ndarray,
+def port_plugin_name(name: str) -> str:
+    """The port's name for a reference plugin name."""
+    return _PLUGIN_NAMES.get(name, name)
+
+
+def _port_layers(raw) -> str:
+    """lrc's `layers` with every layer plugin in the port's names; the
+    string comes back unchanged when no layer names a renamed plugin."""
+    from ceph_tpu_torch.ec.plugin_lrc import _parse_layer_profile
+    layers = json.loads(raw) if isinstance(raw, str) else raw
+    changed = False
+    for entry in layers:
+        if not isinstance(entry, list) or len(entry) < 2:
+            continue
+        sub = _parse_layer_profile(entry[1])
+        if sub.get("plugin") in _PLUGIN_NAMES:
+            sub["plugin"] = port_plugin_name(sub["plugin"])
+            entry[1] = sub
+            changed = True
+    return json.dumps(layers) if changed else raw
+
+
+def port_profile(profile: Mapping[str, str]) -> dict:
+    """A reference profile in the port's plugin names: `tpu` becomes
+    `cuda` as the plugin, as clay's `scalar_mds` and as an lrc layer's
+    plugin."""
+    out = dict(profile)
+    name = port_plugin_name(out.get("plugin", "jerasure"))
+    out["plugin"] = name
+    if name == "clay" and out.get("scalar_mds"):
+        out["scalar_mds"] = port_plugin_name(out["scalar_mds"])
+    if name == "lrc" and out.get("layers"):
+        out["layers"] = _port_layers(out["layers"])
+    return out
+
+
+def generator(instance):
+    """What fixes a plugin instance's bytes, read the same way from an
+    instance of either package: the coding matrix of a GF(2^8) matrix
+    code, the GF(2) generator `code.G` of a bitmatrix technique, shec's
+    shingled `matrix`, clay's inner code's matrix, and for lrc the list
+    of its layers' generators."""
+    if hasattr(instance, "layers"):
+        return [generator(layer.code) for layer in instance.layers]
+    if getattr(instance, "mds", None) is not None:
+        return generator(instance.mds)
+    if getattr(instance, "matrix", None) is not None:
+        return instance.matrix
+    if getattr(instance, "code", None) is not None:
+        return instance.code.G
+    return instance.coding_matrix
+
+
+def _same(a, b) -> bool:
+    if isinstance(a, list) or isinstance(b, list):
+        return (isinstance(a, list) and isinstance(b, list)
+                and len(a) == len(b) and all(map(_same, a, b)))
+    return np.array_equal(np.asarray(a, dtype=np.uint8),
+                          np.asarray(b, dtype=np.uint8))
+
+
+def plugin_from_reference(profile: dict, reference_generator,
                           device: str | torch.device = "cuda"):
-    """The port's plugin instance for a reference profile (plugin `tpu`
-    becomes `cuda`). Raises if its coding matrix is not the reference's."""
+    """The port's plugin instance for a reference profile, in the port's
+    names (`port_profile`). Raises if its generator is not the
+    reference's: `reference_generator` is the reference instance's
+    coding matrix, or `generator(reference_instance)` for any plugin."""
     from ceph_tpu_torch.ec.registry import ErasureCodePluginRegistry
-    profile = dict(profile)
-    name = _PLUGIN_NAMES.get(profile.get("plugin", "jerasure"),
-                             profile.get("plugin", "jerasure"))
-    profile["plugin"] = name
+    profile = port_profile(profile)
     profile["device"] = str(device)
+    name = profile["plugin"]
     instance = ErasureCodePluginRegistry.instance().factory(name, profile)
-    if not np.array_equal(instance.coding_matrix,
-                          np.asarray(coding_matrix, dtype=np.uint8)):
-        raise ValueError(f"plugin {name} builds another coding matrix than "
+    if not _same(generator(instance), reference_generator):
+        raise ValueError(f"plugin {name} builds another generator than "
                          f"the reference")
     return instance

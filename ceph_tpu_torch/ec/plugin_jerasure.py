@@ -11,8 +11,10 @@ Techniques: reed_sol_van, reed_sol_r6_op, cauchy_orig, cauchy_good, all
 GF(2^8) matrix codes. Scalar encode/decode run the bit-matrix kernel (K1)
 on the profile's `device` (default cuda); the batched stripe API sends
 host arrays to the native host codec and CUDA tensors to K1. The
-minimal-density bitmatrix family (liberation, blaum_roth, liber8tion)
-needs ec/bitmatrix.py, which is not ported yet: those techniques raise.
+minimal-density bitmatrix RAID-6 family (liberation, blaum_roth,
+liber8tion) runs on the GF(2) packet-XOR path of ec/bitmatrix.py on the
+host, as in the JAX package; those techniques still read and check the
+profile's `device`.
 """
 from __future__ import annotations
 
@@ -22,7 +24,7 @@ import numpy as np
 import torch
 
 from ceph_tpu_torch import device as _device
-from ceph_tpu_torch.ec import gf256
+from ceph_tpu_torch.ec import bitmatrix, gf256
 from ceph_tpu_torch.ec.interface import ErasureCode, ErasureCodeError
 from ceph_tpu_torch.ec.registry import (ERASURE_CODE_VERSION, ErasureCodePlugin,
                                         ErasureCodePluginRegistry)
@@ -178,6 +180,80 @@ class ErasureCodeJerasureCauchyGood(ErasureCodeJerasure):
         return gf256.cauchy_good_matrix(self.k, self.m)
 
 
+class ErasureCodeJerasureBitMatrix(ErasureCodeJerasure):
+    """Base for the minimal-density GF(2) bitmatrix RAID-6 family
+    (liberation/blaum_roth/liber8tion): m=2, word size w, chunk = w
+    contiguous packets. Lowers onto ec/bitmatrix.py rather than the
+    GF(2^8) codec (these codes are not GF(2^8) matrices)."""
+
+    # the GF(2^8) batched stripe API does not apply to GF(2) bit codes;
+    # ec_util's callable() gate sends these through the per-stripe loop
+    encode_stripes = None
+    decode_stripes = None
+
+    def _check_w(self) -> None:
+        pass            # per-technique constraints in _check_technique
+
+    def _check_technique(self) -> None:
+        if self.m != 2:
+            raise ErasureCodeError(f"{self.technique} requires m=2")
+        if self.k > self.w:
+            raise ErasureCodeError(
+                f"{self.technique}: k={self.k} > w={self.w}")
+
+    def prepare(self) -> None:
+        self.code = bitmatrix.RAID6BitCode(
+            "blaum_roth" if self.technique == "blaum_roth"
+            else "liberation", self.k, self.w)
+
+    def get_alignment(self) -> int:
+        # chunks must split into w equal packets; keep packets themselves
+        # 64-byte aligned for the XOR path
+        return self.w * 64
+
+    def encode_chunks(self, chunks: dict[int, np.ndarray]) -> None:
+        self.code.encode(chunks)
+
+    def decode_chunks(self, want_to_read: Iterable[int],
+                      chunks: dict[int, np.ndarray],
+                      available: set[int]) -> None:
+        want = sorted(set(want_to_read) - available)
+        if not want:
+            return
+        self.code.decode(want, chunks, available)
+
+
+class ErasureCodeJerasureLiberation(ErasureCodeJerasureBitMatrix):
+    technique = "liberation"
+    DEFAULT_TECHNIQUE_W = 7
+
+    def _check_technique(self) -> None:
+        super()._check_technique()
+        if not bitmatrix._is_prime(self.w):
+            raise ErasureCodeError(f"liberation: w={self.w} must be prime")
+
+
+class ErasureCodeJerasureBlaumRoth(ErasureCodeJerasureBitMatrix):
+    technique = "blaum_roth"
+    DEFAULT_TECHNIQUE_W = 6
+
+    def _check_technique(self) -> None:
+        super()._check_technique()
+        if not bitmatrix._is_prime(self.w + 1):
+            raise ErasureCodeError(
+                f"blaum_roth: w+1={self.w + 1} must be prime")
+
+
+class ErasureCodeJerasureLiber8tion(ErasureCodeJerasureBitMatrix):
+    technique = "liber8tion"
+    DEFAULT_TECHNIQUE_W = 8
+
+    def _check_technique(self) -> None:
+        if self.w != 8:
+            raise ErasureCodeError("liber8tion requires w=8")
+        super()._check_technique()
+
+
 _TECHNIQUES = {
     cls.technique: cls
     for cls in (
@@ -185,12 +261,14 @@ _TECHNIQUES = {
         ErasureCodeJerasureReedSolomonRAID6,
         ErasureCodeJerasureCauchyOrig,
         ErasureCodeJerasureCauchyGood,
+        ErasureCodeJerasureLiberation,
+        ErasureCodeJerasureBlaumRoth,
+        ErasureCodeJerasureLiber8tion,
     )
 }
 
-# bitmatrix RAID-6 techniques of the reference plugin that wait for
-# ec/bitmatrix.py to be ported
-_NOT_YET_PORTED = {"liberation", "blaum_roth", "liber8tion"}
+# techniques of the reference plugin not implemented yet (none left)
+_DEFERRED: set[str] = set()
 
 
 class ErasureCodePluginJerasure(ErasureCodePlugin):
@@ -199,9 +277,9 @@ class ErasureCodePluginJerasure(ErasureCodePlugin):
         technique = profile.get("technique", "reed_sol_van")
         cls = _TECHNIQUES.get(technique)
         if cls is None:
-            if technique in _NOT_YET_PORTED:
+            if technique in _DEFERRED:
                 raise ErasureCodeError(
-                    f"technique {technique!r} not yet ported")
+                    f"technique {technique!r} not yet implemented")
             raise ErasureCodeError(f"unknown jerasure technique {technique!r}")
         instance = cls()
         instance.init(profile)

@@ -86,13 +86,13 @@ def apply_bitmatrix_plain(bitmatrix: torch.Tensor,
     """The kernel's function in plain PyTorch, bit-plane form.
 
     bitmatrix (8r, 8k) {0,1}, data (b, k, N) uint8, both on one device ->
-    (b, r, N) uint8. Contracts in int32 on the CPU (CPU int8 `mm` returns
-    int8 and wraps) and in float32 on CUDA (no int32 matmul there); both
-    are exact, every partial sum being at most 8k < 2^24."""
+    (b, r, N) uint8. Contracts in float32 (an int8 `mm` returns int8 and
+    wraps; CUDA has no int32 matmul, and the CPU's is several times
+    slower than its float32 one), which is exact: every partial sum is at
+    most 8k < 2^24."""
     b, k, n = data.shape
     r = bitmatrix.shape[0] // 8
-    dt = torch.int32 if data.device.type == "cpu" else torch.float32
-    B = bitmatrix.to(dt)
+    B = bitmatrix.to(torch.float32)
     out = torch.empty((b, r, n), dtype=torch.uint8, device=data.device)
     shifts = torch.arange(8, dtype=torch.uint8, device=data.device)
     weights = torch.arange(8, dtype=torch.int32, device=data.device)
@@ -100,7 +100,7 @@ def apply_bitmatrix_plain(bitmatrix: torch.Tensor,
     for lo in range(0, n, step):
         d = data[:, :, lo:lo + step]
         planes = ((d[:, :, None, :] >> shifts[None, None, :, None]) & 1)
-        planes = planes.to(dt).reshape(b, 8 * k, d.shape[2])
+        planes = planes.to(torch.float32).reshape(b, 8 * k, d.shape[2])
         bits = torch.matmul(B, planes).to(torch.int32) & 1  # (b, 8r, w)
         bits = bits.reshape(b, r, 8, d.shape[2])
         out[:, :, lo:lo + step] = (bits << weights[None, None, :, None]).sum(

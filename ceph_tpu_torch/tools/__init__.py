@@ -1,1 +1,2 @@
-"""CLIs: the erasure-code benchmark."""
+"""CLIs: the erasure-code benchmark, ec_tool, the corpus non-regression
+check and the bitmatrix table generator."""

@@ -31,7 +31,23 @@ comes out against the host codec:
               fallback;
   phase 8     K3's time at the 1x1 mesh's (16,8,1 MiB) -> (16,3) and
               the 2x2 mesh's per-device (8,8,1 MiB) -> (8,2), and the
-              device operations one call runs (must be 1).
+              device operations one call runs (must be 1);
+  phase 9     every erasure-code plugin with device=cuda: the corpus
+              (ec_non_regression.check_all, 11 entries, every archived
+              chunk byte-equal), then isa k=8 m=3, shec k=6 m=4 c=3, clay
+              k=8 m=4 d=11, lrc k=4 m=2 l=3 and jerasure liberation k=4
+              m=2 w=7 at 1 MiB chunks through ECUtil: encode, K2
+              checksums of every shard, decode_concat / decode_shards
+              of the 4-stripe object under every single erasure and 8
+              seeded multi-erasure patterns, the scalar contract, and
+              clay's MSR repair from sub-chunk reads; held against the
+              same plugin built with device=cpu. K1 must launch for every plugin but liberation
+              (its GF(2) codec runs on the host), K2 for all;
+  phase 9b    the plugins' scalar encode / decode GB/s (ec_benchmark
+              --mode scalar) and K1's time at clay's largest plane batch.
+
+Phase 1 also holds K1 at the plugins' shapes: (1,k,N) -> r for k 3, 6,
+8, 12, r 1-4 and N clay's plane batches and ragged 1 MiB.
 
 Each path's launch counts are set to 0 just before it and read just after;
 a kernel of the path launched no time fails the run. Nothing is caught: any
@@ -64,6 +80,21 @@ K2_TIMED = (256, 1024, 1 << 15, 1 << 16)           # and timed at (4 KiB)
 SERVICE_WRITES = 16             # concurrent one-stripe writes per pass
 ERASURES = ((0, 1, 2), (4, 8, 10), (7, 9, 10))
 MESH_ERASURES = ((0, 1, 2), (1, K, K + 2))     # __graft_entry__.py's
+CORPUS = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                      "ceph-erasure-code-corpus")
+# phase 9: the corpus profiles of every plugin, at full width
+PLUGINS = (("isa", {"k": "8", "m": "3", "technique": "reed_sol_van"}),
+           ("shec", {"k": "6", "m": "4", "c": "3"}),
+           ("clay", {"k": "8", "m": "4", "d": "11"}),
+           ("lrc", {"k": "4", "m": "2", "l": "3"}),
+           ("jerasure", {"k": "4", "m": "2", "technique": "liberation",
+                         "w": "7"}))
+PLUGIN_STRIPES = 4              # stripes per object written
+MULTI_ERASURES = 8              # seeded patterns of 2..m erasures
+# K1's N at the plugins' shapes: clay k=8 m=4 d=11 at 1 MiB chunks decodes
+# planes of 16 KiB in batches of nz planes; lrc's and shec's are ragged
+PLUGIN_WIDTHS = (16 << 10, 7 * (16 << 10), 16 * (16 << 10), CHUNK - 1,
+                 CHUNK + 128)
 
 # (bytes/s, dense int8 op/s) by card name: NVIDIA's H100 data sheet
 _CARD_RATES = {"NVIDIA H100 80GB HBM3": (3.35e12, 1979e12),     # SXM
@@ -417,6 +448,213 @@ def service_split(torch, np, dev) -> dict:
     return split
 
 
+def plugin_chunk(code) -> int:
+    """The smallest chunk of at least 1 MiB that the plugin lays out as it
+    is and that BlueStore's 4 KiB csum blocks tile: 1 MiB, except for
+    liberation w=7, whose chunks are multiples of w * 64 bytes."""
+    k = code.get_data_chunk_count()
+    chunk = CHUNK
+    while code.get_chunk_size(k * chunk) != chunk:
+        chunk += CSUM_BLOCK
+    return chunk
+
+
+def erasure_patterns(code, rng) -> list[tuple[int, ...]]:
+    """Every single erasure, then MULTI_ERASURES distinct patterns of 2 to
+    m erasures drawn by rng among those the plugin can decode: shec and
+    lrc are not MDS, and their own minimum_to_decode decides."""
+    from ceph_tpu_torch.ec.interface import ErasureCodeError
+    n = code.get_chunk_count()
+    m = n - code.get_data_chunk_count()
+    multi: list[tuple[int, ...]] = []
+    for _ in range(10000):
+        if len(multi) == MULTI_ERASURES:
+            break
+        size = int(rng.integers(2, m + 1))
+        lost = tuple(sorted(int(i) for i in rng.choice(n, size,
+                                                       replace=False)))
+        if lost in multi:
+            continue
+        try:
+            code.minimum_to_decode(set(lost), set(range(n)) - set(lost))
+        except ErasureCodeError:
+            continue
+        multi.append(lost)
+    if len(multi) < MULTI_ERASURES:
+        raise AssertionError(f"only {len(multi)} decodable patterns")
+    return [(i,) for i in range(n)] + multi
+
+
+def phase_plugins(torch, np, dev) -> dict:
+    """Every plugin on `dev`: the corpus through ec_non_regression, then
+    each of PLUGINS at full width through ECUtil (encode an object of
+    PLUGIN_STRIPES stripes, K2 checksums of every shard, decode_concat
+    and decode_shards of the object under every single erasure and the
+    seeded multi-erasure patterns), its scalar encode and decode of one
+    stripe, and for clay one MSR repair from sub-chunk reads. Outputs are held against the same plugin built with
+    device=cpu on the same bytes and against the payload. Each plugin's
+    launch counts are read from 0 around its own run. Returns the
+    measurements; asserts nothing about the counts."""
+    from ceph_tpu_torch.ec.registry import factory
+    from ceph_tpu_torch.ops import crc32c, rs_codec
+    from ceph_tpu_torch.osd import ec_util
+    from ceph_tpu_torch.tools import ec_non_regression
+    from ceph_tpu_torch.utils.checksummer import Checksummer
+
+    def sync():
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+
+    out: dict = {}
+    rs_codec.launches = crc32c.launches = 0
+    t0 = time.perf_counter()
+    errors = ec_non_regression.check_all(CORPUS, str(dev))
+    sync()
+    if errors:
+        raise AssertionError(f"corpus differs on {dev}: {errors}")
+    out["corpus"] = {"entries": len(os.listdir(os.path.join(CORPUS, "v1"))),
+                     "seconds": time.perf_counter() - t0,
+                     "launches": {"gf_bitmatrix": rs_codec.launches}}
+    dev_cs = Checksummer("crc32c", CSUM_BLOCK, use_device=True, device=dev)
+    host_cs = Checksummer("crc32c", CSUM_BLOCK, use_device=False)
+    for idx, (name, profile) in enumerate(PLUGINS):
+        code = factory(name, {**profile, "device": str(dev)})
+        ref = factory(name, {**profile, "device": "cpu"})
+        k, n = code.get_data_chunk_count(), code.get_chunk_count()
+        chunk = plugin_chunk(code)
+        sinfo = ec_util.StripeInfo(k, k * chunk)
+        rng = np.random.default_rng(90 + idx)
+        payload = rng.integers(0, 256, PLUGIN_STRIPES * sinfo.stripe_width,
+                               dtype=np.uint8).tobytes()
+        patterns = erasure_patterns(ref, rng)
+        stripe = payload[:sinfo.stripe_width]
+        rs_codec.launches = crc32c.launches = 0
+        t0 = time.perf_counter()
+        shards = {i: bytes(b)
+                  for i, b in ec_util.encode(sinfo, code, payload).items()}
+        csums = {i: dev_cs.calculate(b) for i, b in shards.items()}
+        scalar = code.encode(range(n), stripe)
+        for lost in patterns:
+            have = {i: b for i, b in shards.items() if i not in lost}
+            if ec_util.decode_concat(sinfo, code, have) != payload:
+                raise AssertionError(f"{name} decode_concat {lost}")
+            rebuilt = ec_util.decode_shards(sinfo, code, have, lost)
+            if any(rebuilt[i] != shards[i] for i in lost):
+                raise AssertionError(f"{name} decode_shards {lost}")
+        lost = patterns[n]
+        have = {i: b for i, b in scalar.items() if i not in lost}
+        if code.decode(set(lost), have, chunk) != {i: scalar[i]
+                                                   for i in lost}:
+            raise AssertionError(f"{name} scalar decode {lost}")
+        repair = None
+        if name == "clay":
+            repair = clay_repair(np, ec_util, code, sinfo, shards, chunk)
+        sync()
+        seconds = time.perf_counter() - t0
+        launches = {"gf_bitmatrix": rs_codec.launches,
+                    "crc32c_blocks": crc32c.launches}
+        # what came out, against the CPU build of the same plugin
+        want = {i: bytes(b)
+                for i, b in ec_util.encode(sinfo, ref, payload).items()}
+        if shards != want:
+            raise AssertionError(f"{name}: shards differ from device=cpu")
+        if scalar != {i: b[:chunk] for i, b in want.items()}:
+            raise AssertionError(f"{name}: scalar encode differs")
+        for i, b in shards.items():
+            if not np.array_equal(csums[i], host_cs.calculate(b)):
+                raise AssertionError(f"{name}: shard {i} checksums differ")
+        out[name] = {
+            "profile": profile, "chunk": chunk, "stripes": PLUGIN_STRIPES,
+            "patterns": [list(p) for p in patterns], "seconds": seconds,
+            "launches": launches, "repair": repair}
+    return out
+
+
+def clay_repair(np, ec_util, code, sinfo, shards, chunk) -> dict:
+    """One MSR repair of chunk 5: its plan's sub-chunk runs read from the
+    d helpers of the first stripe through the plugin's decode, then the
+    same plan over the whole object through ECUtil's fragment rebuild.
+    Each helper must give 1/q of its chunk."""
+    lost, n = 5, code.get_chunk_count()
+    sub = code.get_sub_chunk_count()
+    minimum = code.minimum_to_decode({lost}, set(range(n)) - {lost})
+    stripes = len(shards[0]) // chunk
+    helpers, frags = {}, {}
+    for cid, runs in minimum.items():
+        planes = np.frombuffer(shards[cid], dtype=np.uint8).reshape(
+            stripes, sub, -1)
+        fetched = np.concatenate([planes[:, off:off + cnt]
+                                  for off, cnt in runs], axis=1)
+        if fetched[0].size * code.q != chunk:
+            raise AssertionError(f"helper {cid} gives {fetched[0].size} of "
+                                 f"{chunk} bytes, not 1/{code.q}")
+        helpers[cid] = fetched[0].tobytes()
+        frags[cid] = fetched.tobytes()
+    if len(helpers) != code.d:
+        raise AssertionError(f"{len(helpers)} helpers, not d={code.d}")
+    got = code.decode({lost}, helpers, chunk)
+    if got[lost] != shards[lost][:chunk]:
+        raise AssertionError("clay repair from sub-chunks differs")
+    rebuilt = ec_util.decode_shards(sinfo, code, frags, [lost],
+                                    fragments=True)
+    if rebuilt[lost] != shards[lost]:
+        raise AssertionError("clay fragment rebuild differs")
+    read = sum(map(len, helpers.values()))
+    return {"lost": lost, "helpers": len(helpers), "read_bytes": read,
+            "chunk": chunk, "read_share_of_chunk": read / (code.d * chunk)}
+
+
+def phase_plugin_bench(torch, np, dev, rates) -> dict:
+    """`ec_benchmark --mode scalar` encode and decode at 1 MiB chunks for
+    the plugins that launch K1, and K1 at clay's largest plane batch:
+    its encode's 64 planes of 16 KiB in one apply, (1,8,1 MiB) -> (1,4),
+    back to back, on the card (profiler) and through the host `apply`
+    that clay calls (upload, launch, download; median of 10, host
+    clock)."""
+    from ceph_tpu_torch.ec.registry import factory
+    from ceph_tpu_torch.ops import rs_codec
+    from ceph_tpu_torch.tools import ec_benchmark
+    out: dict = {"bench": {}}
+    for name, profile in PLUGINS[:4]:
+        k = int(profile["k"])
+        for workload in ("encode", "decode"):
+            cfg = ec_benchmark.BenchConfig(
+                plugin=name, workload=workload, size=k * CHUNK,
+                iterations=4, erasures=1, seed=42, parameters=dict(profile),
+                mode="scalar", warmup=1, device=str(dev))
+            res = ec_benchmark.run_bench(cfg)
+            out["bench"][f"{name} {workload}"] = {
+                "seconds": res.seconds, "kib": res.kib,
+                "gb_per_s": res.gb_per_s}
+    clay = factory("clay", {**PLUGINS[2][1], "device": str(dev)})
+    kp = clay.k + clay.nu
+    grid = clay.q * clay.t
+    R = rs_codec.recovery_matrix(clay.mds.coding_matrix, tuple(range(kp)),
+                                 tuple(range(kp, grid)))
+    codec = rs_codec.MatrixCodec.get(R)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(9)
+    x = torch.randint(0, 256, (1, kp, CHUNK), dtype=torch.uint8, device=dev,
+                      generator=gen)
+    host = x[0].cpu().numpy()
+    r = R.shape[0]
+    bound, by = bound_ms((kp + r) * CHUNK, 2 * (8 * r) * (8 * kp) * CHUNK,
+                         rates)
+    times = []
+    for _ in range(10):
+        t0 = time.perf_counter()
+        codec.apply(host, dev)
+        times.append((time.perf_counter() - t0) * 1e3)
+    out["clay_batch"] = {
+        "shape": f"(1,{kp},{CHUNK}) -> (1,{r},{CHUNK})",
+        "ms": time_ms(torch, lambda: codec.apply_batch_device(x), 30),
+        "profiled_ms": profiled_ms(torch, lambda: codec.apply_batch_device(x),
+                                   "gf_bitmatrix_kernel"),
+        "host_apply_ms": statistics.median(times),
+        "bound_ms": bound, "bound_by": by}
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--json", help="also write all measurements here")
@@ -519,6 +757,22 @@ def main() -> int:
         k1_checks += 1
         if err:
             raise AssertionError(f"K1 k={k} m={m} N={n} b={b} differs: {err}")
+    # the plugins' shapes (phase 9): one stripe batch, r = 1-4 rows from
+    # k = 3 (lrc's local layers), 6, 8 (clay's inner code) and 12 (shec),
+    # N = clay's plane batches of nz x 16 KiB and a ragged 1 MiB
+    mrng = np.random.default_rng(51)
+    for k, r, n in itertools.product((3, 6, 8, 12), (1, 2, 3, 4),
+                                     PLUGIN_WIDTHS):
+        codec = rs_codec.MatrixCodec.get(
+            mrng.integers(0, 256, (r, k), dtype=np.uint8))
+        x = rand_bytes(1, k, n)
+        err = max_abs_err(codec.apply_batch_device(x),
+                          rs_codec.apply_bitmatrix_plain(
+                              codec._bitmatrix_for(dev)[1], x))
+        k1_err = max(k1_err, err)
+        k1_checks += 1
+        if err:
+            raise AssertionError(f"K1 (1,{k},{n}) -> r={r} differs: {err}")
     # a base pointer off 16-byte alignment takes the byte path at any N
     Mx = gf256.cauchy_good_matrix(K, M)
     codec = rs_codec.MatrixCodec.get(Mx)
@@ -533,7 +787,9 @@ def main() -> int:
     del full, words, src, rec, plain, parity
     log(f"phase 1: K1 equal to its plain version in {k1_checks} cases "
         f"(full width 16x8x1MiB encode and 3-erasure decodes for "
-        f"reed_sol_van and cauchy_good; ragged k/m/N/batch; unaligned "
+        f"reed_sol_van and cauchy_good; ragged k/m/N/batch; the plugins' "
+        f"(1,k,N) -> r for k 3/6/8/12, r 1-4, N "
+        f"{', '.join(map(str, PLUGIN_WIDTHS))}; unaligned "
         f"base), max_abs_err {k1_err} (tolerance 0: integer outputs must "
         f"be equal), {time.perf_counter() - t0:.1f} s")
 
@@ -928,22 +1184,98 @@ def main() -> int:
         torch, lambda: rs_codec.encode_local_plain(k3_bitm, data), 3, 1)
     del data
 
+    # -- phase 9: every plugin on the card ----------------------------------
+    t0 = time.perf_counter()
+    plugins = phase_plugins(torch, np, dev)
+    corpus = plugins["corpus"]
+    log(f"phase 9: ec_non_regression check_all over {corpus['entries']} "
+        f"corpus entries with device={dev}: every archived chunk "
+        f"byte-equal, K1 launches {corpus['launches']['gf_bitmatrix']}, "
+        f"{corpus['seconds']:.1f} s")
+    if corpus["launches"]["gf_bitmatrix"] <= 0:
+        raise AssertionError("the corpus check never launched K1")
+    for pname, _ in PLUGINS:
+        res = plugins[pname]
+        prof = ",".join(f"{k}={v}" for k, v in res["profile"].items())
+        extra = ""
+        if res["repair"]:
+            rp = res["repair"]
+            extra = (f"; MSR repair of chunk {rp['lost']} from {rp['helpers']}"
+                     f" helpers read {rp['read_bytes']} bytes "
+                     f"({rp['read_share_of_chunk']:.4f} of each chunk), "
+                     f"bytes equal, and ECUtil's fragment rebuild of the "
+                     f"whole shard equal")
+        log(f"phase 9: {pname} {prof}, {res['chunk']}-byte chunks, "
+            f"{res['stripes']} stripes through ECUtil on {dev}: shards "
+            f"equal to device=cpu, K2 checksums equal to the host crc, "
+            f"decode_concat and decode_shards of the object bit-identical "
+            f"under {len(res['patterns'])} patterns {res['patterns']}, "
+            f"scalar encode and decode of one stripe equal{extra}; "
+            f"{res['seconds']:.2f} s; launches "
+            f"{res['launches']}")
+        k1 = res["launches"]["gf_bitmatrix"]
+        if (pname == "jerasure") != (k1 == 0):
+            raise AssertionError(
+                f"{pname}: K1 launched {k1} times; the bitmatrix technique "
+                f"must launch none (its codec runs on the host), every "
+                f"other plugin some")
+        if res["launches"]["crc32c_blocks"] <= 0:
+            raise AssertionError(f"{pname}: the shards' checksums never "
+                                 f"launched K2")
+    report["plugins"] = plugins
+    log(f"phase 9: {time.perf_counter() - t0:.1f} s")
+
+    # -- phase 9b: the plugins' scalar timings -------------------------------
+    t0 = time.perf_counter()
+    pbench = phase_plugin_bench(torch, np, dev, rates)
+    for label, res in pbench["bench"].items():
+        pname, workload = label.split()
+        log(f"phase 9b: ec_benchmark -p {pname} -w {workload} --mode scalar "
+            f"-s {int(dict(PLUGINS)[pname]['k']) * CHUNK} -i 4 (1 MiB "
+            f"chunks): {res['seconds']:.6f}\t{res['kib']:.0f} -> "
+            f"{res['gb_per_s']:.3f} GB/s on {smi}")
+    cb = pbench["clay_batch"]
+    on_card = ("not measured (no launch in the profiler's trace)"
+               if cb["profiled_ms"] is None else
+               f"{cb['profiled_ms']:.4f} ms "
+               f"({cb['bound_ms'] / cb['profiled_ms'] * 100:.1f}% of the "
+               f"bound)")
+    log(f"phase 9b: K1 at clay's largest plane batch {cb['shape']}: "
+        f"{cb['ms']:.4f} ms back to back ({cb['bound_ms'] / cb['ms'] * 100:.1f}"
+        f"% of the {cb['bound_ms']:.5f} ms bound by {cb['bound_by']}); one "
+        f"launch on the card (profiler, mean of 20): {on_card}; clay's "
+        f"host apply (upload, K1, download) {cb['host_apply_ms']:.3f} ms "
+        f"(median of 10, host clock); {time.perf_counter() - t0:.1f} s")
+    report["plugin_bench"] = pbench
+    plugin_launches = {kname: sum(plugins[pname]["launches"][kname]
+                                  for pname, _ in PLUGINS)
+                       for kname in ("gf_bitmatrix", "crc32c_blocks")}
+    plugin_launches["gf_bitmatrix"] += corpus["launches"]["gf_bitmatrix"]
+
     kernels = [
         {"name": "gf_bitmatrix", "route": "cuda",
          "source": "ceph_tpu_torch/ops/csrc/gf_bitmatrix.cu",
          "replaces": "ceph_tpu/ops/rs_codec.py:74",
          "also_replaces": "ceph_tpu/ops/rs_codec.py:55",
          "shape": f"({BATCH},{K},{CHUNK}) -> ({BATCH},{M},{CHUNK}) uint8",
-         "matched": k1_err == 0, "launches": svc_launches["gf_bitmatrix"],
+         "matched": k1_err == 0,
+         "launches": svc_launches["gf_bitmatrix"]
+         + plugin_launches["gf_bitmatrix"],
+         "launches_by_path": {"service": svc_launches["gf_bitmatrix"],
+                              "plugins": plugin_launches["gf_bitmatrix"]},
          "max_abs_err": k1_err, "tolerance": 0, "ms": k1_ms, "kernel_ms": k1_ms,
          "isolated_ms": k1_iso_ms,
          "plain_ms": k1_plain_ms, "bound_ms": k1_bound, "bound_by": k1_by,
-         "library_ms": None},
+         "library_ms": None, "shapes": [{**cb, "path": "clay plane batch"}]},
         {"name": "crc32c_blocks", "route": "cuda",
          "source": "ceph_tpu_torch/ops/csrc/crc32c_blocks.cu",
          "replaces": "ceph_tpu/ops/crc32c.py:95",
          "shape": f"({CRC_BATCH},{CSUM_BLOCK}) uint8 -> ({CRC_BATCH},) crc",
-         "matched": k2_err == 0, "launches": svc_launches["crc32c_blocks"],
+         "matched": k2_err == 0,
+         "launches": svc_launches["crc32c_blocks"]
+         + plugin_launches["crc32c_blocks"],
+         "launches_by_path": {"service": svc_launches["crc32c_blocks"],
+                              "plugins": plugin_launches["crc32c_blocks"]},
          "max_abs_err": k2_err, "tolerance": 0, "ms": k2_ms, "kernel_ms": k2_ms,
          "isolated_ms": k2_iso_ms,
          "plain_ms": k2_plain_ms, "bound_ms": k2_bound, "bound_by": k2_by,
@@ -966,8 +1298,8 @@ def main() -> int:
             f"back to back ({nbytes / kr['ms'] / 1e6:.1f} GB/s; one launch "
             f"alone on an idle stream {kr['isolated_ms']:.4f} ms), bound {kr['bound_ms']:.4f} "
             f"ms by {kr['bound_by']} ({kr['bound_ms'] / kr['ms'] * 100:.1f}% "
-            f"of it), plain {kr['plain_ms']:.3f} ms, launches in the "
-            f"service phase {kr['launches']}; no single PyTorch call "
+            f"of it), plain {kr['plain_ms']:.3f} ms, launches on the main "
+            f"paths (phases 7 and 9) {kr['launches']}; no single PyTorch call "
             f"computes this function, so library_ms is null")
     report["kernels"] = kernels
     report["total_s"] = time.perf_counter() - t_start
@@ -979,7 +1311,8 @@ def main() -> int:
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
-        "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
     return 0
 
 

@@ -1,6 +1,7 @@
 """The port's `cuda` and `jerasure` plugins against the JAX package's `tpu`
 and `jerasure` plugins, on the CPU (profile key device=cpu), with exact
-byte equality; plus the archived corpus and the port's registry."""
+byte equality; plus every entry of the archived corpus and the port's
+registry."""
 import json
 import os
 
@@ -109,18 +110,14 @@ def test_read_only_host_views_are_staged():
         port.encode_stripes(view), port.encode_stripes(view.copy()))
 
 
-@pytest.mark.parametrize("entry", [
-    "tpu_k=8_m=3",
-    "jerasure_k=4_m=2_technique=reed_sol_van",
-    "jerasure_k=6_m=2_technique=cauchy_good",
-])
+@pytest.mark.parametrize("entry", sorted(os.listdir(CORPUS)))
 def test_corpus_reproduces(entry):
     d = os.path.join(CORPUS, entry)
     with open(os.path.join(d, "profile.json")) as f:
         profile = json.load(f)
-    name = {"tpu": "cuda"}.get(profile["plugin"], profile["plugin"])
-    code = ErasureCodePluginRegistry.instance().factory(
-        name, {**profile, "plugin": name, "device": "cpu"})
+    profile = {**convert.port_profile(profile), "device": "cpu"}
+    code = ErasureCodePluginRegistry.instance().factory(profile["plugin"],
+                                                        profile)
     with open(os.path.join(d, "payload"), "rb") as f:
         payload = f.read()
     chunks = code.encode(range(code.get_chunk_count()), payload)
@@ -134,7 +131,7 @@ def test_corpus_reproduces(entry):
 def test_registry_loads_port_plugins():
     reg = ErasureCodePluginRegistry.instance()
     assert reg is not RefRegistry.instance()
-    for name in ("cuda", "jerasure"):
+    for name in ("cuda", "jerasure", "isa", "shec", "lrc", "clay"):
         plugin = reg.load(name)
         assert type(plugin).__module__ == f"ceph_tpu_torch.ec.plugin_{name}"
     code = reg.factory("cuda", {"device": "cpu"})
@@ -142,18 +139,22 @@ def test_registry_loads_port_plugins():
     assert code.get_profile()["device"] == "cpu"
 
 
-@pytest.mark.parametrize("technique", ["liberation", "blaum_roth", "liber8tion"])
-def test_bitmatrix_techniques_not_yet_ported(technique):
-    with pytest.raises(ErasureCodeError, match="not yet ported"):
-        ErasureCodePluginRegistry.instance().factory(
-            "jerasure", {"k": "4", "m": "2", "technique": technique,
-                         "device": "cpu"})
+@pytest.mark.parametrize("technique", ["reed_sol_van", "reed_sol_r6_op",
+                                       "cauchy_orig", "cauchy_good",
+                                       "liberation", "blaum_roth",
+                                       "liber8tion"])
+def test_every_jerasure_technique_loads(technique):
+    code = ErasureCodePluginRegistry.instance().factory(
+        "jerasure", {"k": "4", "m": "2", "technique": technique,
+                     "device": "cpu"})
+    assert code.technique == technique
+    assert code.get_profile()["device"] == "cpu"
 
 
 def test_registry_rejects_unknown():
     reg = ErasureCodePluginRegistry.instance()
-    with pytest.raises(ErasureCodeError):
-        reg.factory("isa", {"device": "cpu"})
+    with pytest.raises(ErasureCodeError, match="no builtin plugin"):
+        reg.factory("tpu", {"device": "cpu"})
     with pytest.raises(ErasureCodeError):
         reg.factory("jerasure", {"technique": "nope", "device": "cpu"})
     with pytest.raises(ErasureCodeError):

@@ -35,6 +35,14 @@ def test_every_module_is_listed():
                      "ceph_tpu_torch.ops.rs_codec", "ceph_tpu_torch.ops.crc32c",
                      "ceph_tpu_torch.ops._build", "ceph_tpu_torch.ec.plugin_cuda",
                      "ceph_tpu_torch.ec.plugin_jerasure",
+                     "ceph_tpu_torch.ec.bitmatrix",
+                     "ceph_tpu_torch.ec.plugin_isa",
+                     "ceph_tpu_torch.ec.plugin_shec",
+                     "ceph_tpu_torch.ec.plugin_lrc",
+                     "ceph_tpu_torch.ec.plugin_clay",
+                     "ceph_tpu_torch.tools.ec_non_regression",
+                     "ceph_tpu_torch.tools.ec_tool",
+                     "ceph_tpu_torch.tools.gen_bitmatrix_tables",
                      "ceph_tpu_torch.osd.ec_util",
                      "ceph_tpu_torch.utils.checksummer",
                      "ceph_tpu_torch.native.ec_native",
@@ -102,7 +110,7 @@ def _entry_points():
     from ceph_tpu_torch.ec import gf256
     from ceph_tpu_torch.ec.registry import factory
     from ceph_tpu_torch.ops import crc32c, rs_codec
-    from ceph_tpu_torch.tools import ec_benchmark
+    from ceph_tpu_torch.tools import ec_benchmark, ec_non_regression, ec_tool
     from ceph_tpu_torch.utils.checksummer import Checksummer
     M = gf256.reed_sol_van_matrix(4, 2)
     data = np.zeros((4, 128), dtype=np.uint8)
@@ -112,6 +120,18 @@ def _entry_points():
         "Crc32cDevice": lambda: crc32c.Crc32cDevice(4096),
         "plugin cuda": lambda: factory("cuda", {"k": "4", "m": "2"}),
         "plugin jerasure": lambda: factory("jerasure", {"k": "4", "m": "2"}),
+        "plugin jerasure liberation": lambda: factory(
+            "jerasure", {"k": "4", "m": "2", "technique": "liberation"}),
+        "plugin isa": lambda: factory("isa", {"k": "8", "m": "3"}),
+        "plugin shec": lambda: factory("shec", {"k": "6", "m": "4",
+                                                "c": "3"}),
+        "plugin lrc": lambda: factory("lrc", {"k": "4", "m": "2", "l": "3"}),
+        "plugin clay": lambda: factory("clay", {"k": "8", "m": "4",
+                                                "d": "11"}),
+        "ec_non_regression": lambda: ec_non_regression.check_all(
+            os.path.join(REPO, "ceph-erasure-code-corpus")),
+        "ec_tool": lambda: ec_tool.main(["calc-chunk-size",
+                                         "shec,k=6,m=4,c=3", "4096"]),
         "Checksummer device": lambda: Checksummer(
             "crc32c", 4096, use_device=True).calculate(bytes(4096)),
         "ec_benchmark": lambda: ec_benchmark.run_bench(ec_benchmark.BenchConfig(
