@@ -24,10 +24,14 @@ Subpackages (same layout as ceph_tpu):
           mesh fan-out)
   parallel the (stripe, shard) device mesh and the sharded encode
   utils   Checksummer (BlueStore per-block checksums); copies of dout,
-          perf counters and the Throttle
+          perf counters, the Throttle, the config schema and the
+          observability modules: tracer (spans, sampling, dispatch
+          profiling), critpath, flight (the event ring) and copytrack
+          (the copy ledger)
   native  ctypes loader for the repo's host C++ codec and crc32c
-  tools   ec_benchmark, ec_tool, ec_non_regression (the corpus check),
-          gen_bitmatrix_tables
+  tools   ec_benchmark, bench_driver (its cpu, probe, device and
+          mesh_scaling stages and the attribution waterfall), ec_tool,
+          ec_non_regression (the corpus check), gen_bitmatrix_tables
 """
 
 __version__ = "0.1.0"

@@ -7,8 +7,13 @@ wrapper takes its plain PyTorch version.
 """
 from __future__ import annotations
 
+import contextlib
+import time
+
 import numpy as np
 import torch
+
+from ceph_tpu_torch.utils import copytrack
 
 DEFAULT_DEVICE = "cuda"
 
@@ -66,3 +71,67 @@ def staged(data: np.ndarray) -> torch.Tensor:
     t = torch.empty(data.shape, dtype=torch.uint8)
     np.copyto(t.numpy(), data, casting="unsafe")
     return t
+
+
+# -- the legs of a staged device call ------------------------------------------
+
+H2D, KERNEL, D2H = range(3)
+
+
+class Legs:
+    """The upload, kernel and download legs of staged device calls under
+    dispatch profiling (tracer.profile_dispatch). On a card each leg is
+    bracketed by a pair of CUDA events recorded on the stream it runs on
+    and read after the call's synchronize (a leg then also holds any
+    time its stream waited for the host to issue the work); on the CPU
+    the host clock times it."""
+
+    def __init__(self, device: torch.device):
+        self.cuda = device.type == "cuda"
+        self.seconds = [0.0, 0.0, 0.0]
+        self._events: list[tuple] = []
+
+    @contextlib.contextmanager
+    def leg(self, which: int, stream=None):
+        if not self.cuda:
+            t0 = time.perf_counter()
+            yield
+            self.seconds[which] += time.perf_counter() - t0
+            return
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record(stream)
+        yield
+        end.record(stream)
+        self._events.append((which, start, end))
+
+    def read(self) -> list[float]:
+        """Seconds per leg; on a card, after the synchronize."""
+        for which, start, end in self._events:
+            self.seconds[which] += start.elapsed_time(end) / 1e3
+        self._events.clear()
+        return self.seconds
+
+
+_NO_LEG = contextlib.nullcontext()
+
+
+def leg(legs: Legs | None, which: int, stream=None):
+    """`legs.leg(which, stream)`, or a no-op when the call is not
+    profiled."""
+    return _NO_LEG if legs is None else legs.leg(which, stream)
+
+
+def note_roundtrip(legs: Legs | None, up: int, down: int, sp=None) -> None:
+    """A staged call's copy-ledger entries (the bytes up and down, with
+    the legs' seconds when they were timed) and, for a profiled call, the
+    legs as its span's `h2d_us` / `kernel_us` / `d2h_us` tags (the
+    attribution waterfall's device buckets)."""
+    h2d_s, kernel_s, d2h_s = legs.read() if legs is not None \
+        else (0.0, 0.0, 0.0)
+    copytrack.copied("h2d", up, h2d_s)
+    copytrack.copied("d2h", down, d2h_s)
+    if legs is not None and sp is not None:
+        sp.set_tag("h2d_us", round(h2d_s * 1e6, 1))
+        sp.set_tag("kernel_us", round(kernel_s * 1e6, 1))
+        sp.set_tag("d2h_us", round(d2h_s * 1e6, 1))

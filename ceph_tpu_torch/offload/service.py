@@ -39,11 +39,22 @@ The device list is explicit: default every visible card, raising
 DeviceUnavailable without one; `devices=["cpu"]` (only when asked) runs
 the kernels' plain versions on the CPU.
 
-Left out of this port, with the reference modules they need: tracer
-spans and dispatch profiling, the copytrack ledger and flight recorder,
-sanitizer view guards and locksets, interleave yield points and fault
-injection, the topology shared across a reactor pool (each service keeps
-its own, the reference's unpooled behaviour), `submit_threadsafe`, the
+Observability, as in the reference: tracer spans `offload_queue_wait`
+(admission -> dispatch, tag `batch_ops`) and `offload_batch` (links to
+every rider's trace; tags `ops`, `bytes`, `device`, `copy_bytes`,
+`copy_us`) nest under the submitting op's trace, the executor running
+under the caller's context so the plugin's dispatch spans nest too.
+Under `tracer.profile_dispatch()` the staged device call also tags the
+batch span with its legs (`h2d_us`, `kernel_us`, `d2h_us`), each timed
+by a pair of CUDA events on the stream it runs on; off that mode there
+is no event and no extra synchronize. The copy ledger gets
+`buffer_to_staging`, `h2d` and `d2h`; the flight recorder
+`device_failover`, `breaker_trip` and `breaker_recover`.
+
+Left out of this port, with the reference modules they need: sanitizer
+view guards and locksets, interleave yield points and fault injection,
+the topology shared across a reactor pool (each service keeps its own,
+the reference's unpooled behaviour), `submit_threadsafe`, the
 `ec_offload_*` config schema and observers, the admin-socket commands
 and the mgr device rows. `apply_setting` takes the same option names.
 """
@@ -51,6 +62,7 @@ from __future__ import annotations
 
 import asyncio
 import concurrent.futures
+import contextvars
 import os
 import threading
 import time
@@ -60,6 +72,7 @@ import numpy as np
 import torch
 
 from ceph_tpu_torch import device as _device
+from ceph_tpu_torch.utils import copytrack, flight, tracer
 from ceph_tpu_torch.utils.dout import dout
 from ceph_tpu_torch.utils.perf_counters import (TYPE_GAUGE, TYPE_HISTOGRAM,
                                                 PerfCountersCollection)
@@ -88,6 +101,11 @@ _instances: dict[Any, "OffloadService"] = {}
 
 _pool: concurrent.futures.ThreadPoolExecutor | None = None
 _pool_lock = threading.Lock()
+
+#: the open `offload_batch` span of the batch a task is dispatching (set
+#: in _run_batch, read by _device_call to tag the profiled legs)
+_batch_span: contextvars.ContextVar = contextvars.ContextVar(
+    "offload_batch_span", default=None)
 
 
 def _executor() -> concurrent.futures.ThreadPoolExecutor:
@@ -177,7 +195,7 @@ class _Job:
     job, e.g. per-shard csum fragments): the fragments stack straight
     into the staging page at batch build."""
 
-    __slots__ = ("data", "rows", "nbytes", "fut", "t_submit")
+    __slots__ = ("data", "rows", "nbytes", "fut", "span", "t_submit")
 
     def __init__(self, data, fut: asyncio.Future):
         self.data = data
@@ -188,6 +206,7 @@ class _Job:
             self.rows = data.shape[0]
             self.nbytes = int(data.nbytes)
         self.fut = fut
+        self.span = tracer.start_span("offload_queue_wait")
         self.t_submit = time.perf_counter()
 
 
@@ -692,7 +711,10 @@ class OffloadService:
         service is compared with)."""
         if isinstance(data, list):
             # scatter job on the bypass path: one contiguous batch
+            t0 = time.perf_counter()
             data = np.concatenate(data, axis=0)
+            copytrack.copied("buffer_to_staging", int(data.nbytes),
+                             time.perf_counter() - t0)
         self.perf.inc("jobs")
         self.stats["jobs"] += 1
         nbytes = int(data.nbytes)
@@ -790,7 +812,8 @@ class OffloadService:
         (pinned for a card): the one host copy of the callers' bytes,
         from which the batch goes to the card without another. On the
         host lane a lone single-array job is handed through by
-        reference. Returns (batch, staging page or None)."""
+        reference. The copy ledger records which. Returns (batch,
+        staging page or None, seconds of the stacking copy)."""
         frags: list[np.ndarray] = []
         for j in jobs:
             if isinstance(j.data, list):
@@ -798,9 +821,11 @@ class OffloadService:
             else:
                 frags.append(j.data)
         if slot.device is None and len(frags) == 1:
-            return frags[0], None
+            copytrack.referenced("buffer_to_staging", jobs[0].nbytes)
+            return frags[0], None, 0.0
         nbytes = sum(int(f.nbytes) for f in frags)
         rows = sum(f.shape[0] for f in frags)
+        t0 = time.perf_counter()
         buf = slot.get_staging(nbytes)
         view = buf[:nbytes].view((rows,) + tuple(frags[0].shape[1:]))
         dst = view.numpy()
@@ -808,7 +833,9 @@ class OffloadService:
         for f in frags:
             np.copyto(dst[row:row + f.shape[0]], f)
             row += f.shape[0]
-        return (view if slot.device is not None else dst), buf
+        dt = time.perf_counter() - t0
+        copytrack.copied("buffer_to_staging", nbytes, dt)
+        return (view if slot.device is not None else dst), buf, dt
 
     async def _run_batch(self, bucket: _Bucket) -> None:
         jobs = bucket.jobs
@@ -829,10 +856,34 @@ class OffloadService:
                     for j in jobs:
                         self.perf.hist_add("queue_wait_us",
                                            (now - j.t_submit) * 1e6)
-                    stacked, staging = self._stack(slot, jobs)
+                        if j.span is not None:
+                            j.span.set_tag("batch_ops", len(jobs))
+                            j.span.finish()
+                    stacked, staging, stack_s = self._stack(slot, jobs)
                     nbytes = int(stacked.nbytes)
-                    out, _ = await self._dispatch(bucket, slot, stacked,
-                                                  len(jobs), token)
+                    with tracer.span("offload_batch") as sp:
+                        if sp is not None:
+                            # span links: the coalesced batch serves
+                            # riders of many traces; `trace get <rider>`
+                            # pulls this span in through them
+                            for j in jobs:
+                                if j.span is not None and \
+                                        j.span.trace_id != sp.trace_id:
+                                    sp.add_link(j.span.context())
+                        cv_token = _batch_span.set(sp)
+                        try:
+                            out, on_device = await self._dispatch(
+                                bucket, slot, stacked, len(jobs), token)
+                        finally:
+                            _batch_span.reset(cv_token)
+                        if sp is not None:
+                            sp.set_tag("ops", len(jobs))
+                            sp.set_tag("bytes", nbytes)
+                            sp.set_tag("device", on_device)
+                            sp.set_tag("copy_bytes",
+                                       nbytes if staging is not None
+                                       else 0)
+                            sp.set_tag("copy_us", round(stack_s * 1e6, 1))
                     self._note_batch(len(jobs), nbytes)
                     row = 0
                     for j in jobs:
@@ -864,20 +915,31 @@ class OffloadService:
             slot.inflight -= 1
 
     async def _in_pool(self, fn: Callable, batch) -> np.ndarray:
-        return await self._loop.run_in_executor(_executor(), fn, batch)
+        """fn(batch) in the executor UNDER the caller's contextvar
+        context: run_in_executor does not propagate it, which would
+        orphan the plugin's tpu_*_dispatch spans into fresh root traces
+        instead of nesting them under offload_batch."""
+        ctx = contextvars.copy_context()
+        return await self._loop.run_in_executor(
+            _executor(), lambda: ctx.run(fn, batch))
 
     async def _device_call(self, slot: _DeviceSlot, fn: Callable,
                            stacked: torch.Tensor) -> np.ndarray:
         """One staged dispatch onto `slot`'s device, in the executor (see
-        _run_on_slot)."""
+        _run_on_slot). Under tracer.profile_dispatch the batch span gets
+        the call's h2d/kernel/d2h legs."""
+        sp = _batch_span.get() if tracer.profile_dispatch() else None
         return await self._in_pool(
-            lambda batch: _run_on_slot(slot, fn, batch), stacked)
+            lambda batch: _run_on_slot(slot, fn, batch, sp), stacked)
 
     def _mesh_apply(self, cache_key: tuple, M: np.ndarray,
                     batch) -> np.ndarray:
         """Stripe-shard `batch` across the whole mesh through the cached
         sharded apply for matrix `M` (runs in the executor)."""
-        return self._topo.mesh_fn(cache_key, M)(batch)
+        out = self._topo.mesh_fn(cache_key, M)(batch)
+        copytrack.copied("h2d", int(batch.nbytes))
+        copytrack.copied("d2h", int(out.nbytes))
+        return out
 
     def _mesh_allowed(self) -> bool:
         topo = self._topo
@@ -975,6 +1037,9 @@ class OffloadService:
                     # deadlock); routing sees the load via inflight
                     self.perf.inc("device_failovers")
                     self.stats["device_failovers"] += 1
+                    flight.record("device_failover", slot.label,
+                                  to=nxt.label,
+                                  error=f"{type(e).__name__}: {e}")
                     nxt.inflight += 1
                     failover_slots.append(nxt)
                     slot = nxt
@@ -1069,6 +1134,7 @@ class OffloadService:
         if recovered:
             dout("offload", 1,
                  f"device {slot.label} recovered; back in rotation")
+            flight.record("breaker_recover", slot.label)
 
     def _slot_failure(self, slot: _DeviceSlot, e: Exception) -> None:
         state = slot.state
@@ -1093,6 +1159,9 @@ class OffloadService:
                  f"removed from rotation for {self.breaker_reset_s:.0f}s"
                  + (" — no devices left, host codec serves"
                     if self.degraded else ""))
+            flight.record("breaker_trip", slot.label,
+                          error=slot.last_error,
+                          all_degraded=self.degraded)
 
     # -- surfaces ------------------------------------------------------------
 
@@ -1159,30 +1228,45 @@ class OffloadService:
 
 # -- the staged device call ----------------------------------------------------
 
-def _run_on_slot(slot: _DeviceSlot, fn: Callable,
-                 batch: torch.Tensor) -> np.ndarray:
+def _run_on_slot(slot: _DeviceSlot, fn: Callable, batch: torch.Tensor,
+                 sp=None) -> np.ndarray:
     """`batch` (a CPU tensor, pinned for a card) -> fn on `slot`'s device
     -> numpy. On a card: the upload on the slot's copy stream, `fn` on
     the card's current stream after it, the result back into pinned
     memory on the copy stream, one synchronize. On the CPU: fn(batch)
-    (the kernels' plain versions)."""
+    (the kernels' plain versions). The copy ledger gets the bytes up and
+    down.
+
+    With `sp`, the open batch span of a profiled dispatch, the three legs
+    run one after another, each timed on the stream it runs on (the
+    host clock on the CPU, where there is no upload), and their sum
+    lands on `sp` as its h2d_us / kernel_us / d2h_us tags."""
     dev = slot.device
+    legs = _device.Legs(dev) if sp is not None else None
     if dev.type == "cpu":
-        return fn(batch).numpy()
+        with _device.leg(legs, _device.KERNEL):
+            res = fn(batch)
+        with _device.leg(legs, _device.D2H):
+            out = res.numpy()
+        _device.note_roundtrip(legs, int(batch.nbytes), out.nbytes, sp)
+        return out
     copy = slot.stream
     with torch.cuda.device(dev):
         compute = torch.cuda.current_stream(dev)
-        with torch.cuda.stream(copy):
+        with torch.cuda.stream(copy), _device.leg(legs, _device.H2D, copy):
             src = batch.to(dev, non_blocking=True)
         compute.wait_stream(copy)
         src.record_stream(compute)
-        out = fn(src)
+        with _device.leg(legs, _device.KERNEL, compute):
+            out = fn(src)
         host = torch.empty(out.shape, dtype=out.dtype, pin_memory=True)
         copy.wait_stream(compute)
-        with torch.cuda.stream(copy):
+        with torch.cuda.stream(copy), _device.leg(legs, _device.D2H, copy):
             host.copy_(out, non_blocking=True)
         out.record_stream(copy)
         copy.synchronize()
+    _device.note_roundtrip(legs, int(batch.nbytes),
+                           host.numel() * host.element_size(), sp)
     return host.numpy()
 
 

@@ -21,17 +21,20 @@ checked on reads/deep-scrub.
 Port of ceph_tpu/osd/ec_util.py, with the `cuda` plugin's batched APIs
 carrying the stripes to the card. The `*_async` variants route the
 device dispatch through the offload service (ceph_tpu_torch.offload),
-where it coalesces with concurrent callers. The tracer spans,
-copy-ledger and sanitizer hooks belong to the cluster runtime and come
-with its port.
+where it coalesces with concurrent callers. Tracer spans (`ec_encode`,
+`ec_decode`, `ec_recover`) and the copy ledger's `frame_to_buffer` and
+`reply_assemble` stages are the reference's; its sanitizer view guards
+belong to the messenger and come with it.
 """
 from __future__ import annotations
 
+import time
 from typing import Iterable, Mapping
 
 import numpy as np
 
 from ceph_tpu_torch.ec.interface import ErasureCodeError
+from ceph_tpu_torch.utils import copytrack, tracer
 
 
 class StripeInfo:
@@ -118,8 +121,15 @@ def _encode_frame(sinfo: StripeInfo, ec_impl, data, want):
         # np.frombuffer windows the message bytes — no copy, read-only:
         # the plugin copies them into its staging memory
         buf = np.frombuffer(data, dtype=np.uint8)
+        copytrack.referenced("frame_to_buffer", buf.size)
     else:
+        t0 = time.perf_counter()
         buf = np.ascontiguousarray(data, dtype=np.uint8).reshape(-1)
+        if np.shares_memory(buf, data):
+            copytrack.referenced("frame_to_buffer", buf.size)
+        else:
+            copytrack.copied("frame_to_buffer", buf.size,
+                             time.perf_counter() - t0)
     if buf.size % sinfo.stripe_width:
         raise ErasureCodeError(
             f"input size {buf.size} not a multiple of stripe width "
@@ -142,7 +152,7 @@ def _encode_frame(sinfo: StripeInfo, ec_impl, data, want):
 
 
 def _encode_assemble(stripes: np.ndarray, parity: np.ndarray, k: int,
-                     want) -> dict[int, memoryview]:
+                     want, sp=None) -> dict[int, memoryview]:
     """Shard planes -> per-shard reply buffers, AT MOST one copy per
     byte — and zero for contiguous planes.
 
@@ -152,21 +162,34 @@ def _encode_assemble(stripes: np.ndarray, parity: np.ndarray, k: int,
     indexed has size 1 (m == 1 parity) — in that case the plane IS the
     reply buffer and a memoryview over it goes downstream as-is
     (message frames, object-store writes and crc all take buffer
-    objects). Strided planes (multi-stripe, k or
+    objects), metered referenced. Strided planes (multi-stripe, k or
     m >= 2) still pay the single extraction copy into a fresh
-    bytearray."""
+    bytearray — the remaining reply_assemble ledger entry."""
+    t0 = time.perf_counter()
     S, _, C = stripes.shape
     out: dict[int, memoryview] = {}
+    copied = 0
+    referenced = 0
     for i in sorted(want):
         src = stripes[:, i, :] if i < k else parity[:, i - k, :]
         if src.flags.c_contiguous:
             # no materialization: the plane is a window over the encode
             # input (data shards) or the device result (parity)
             out[i] = memoryview(src.reshape(S * C))
+            referenced += S * C
             continue
         buf = bytearray(S * C)
         np.copyto(np.frombuffer(buf, dtype=np.uint8).reshape(S, C), src)
         out[i] = memoryview(buf)
+        copied += S * C
+    dt = time.perf_counter() - t0
+    if referenced:
+        copytrack.referenced("reply_assemble", referenced)
+    if copied:
+        copytrack.copied("reply_assemble", copied, dt)
+    if sp is not None:
+        sp.set_tag("copy_bytes", copied)
+        sp.set_tag("copy_us", round(dt * 1e6, 1))
     return out
 
 
@@ -190,11 +213,18 @@ def _encode_scalar(sinfo: StripeInfo, ec_impl, stripes, want, k, n_chunks,
 def _encode_framed(sinfo: StripeInfo, ec_impl, stripes, want, k, n_chunks,
                    mapping, batched) -> dict[int, bytes]:
     """Inline dispatch of an already-validated frame."""
-    if batched:
-        parity = np.asarray(ec_impl.encode_stripes(stripes))
-        return _encode_assemble(stripes, parity, k, want)
-    return _encode_scalar(sinfo, ec_impl, stripes, want, k, n_chunks,
-                          mapping)
+    with tracer.span("ec_encode") as sp:
+        if sp is not None:
+            sp.set_tag("bytes", int(stripes.size))
+            sp.set_tag("k", k)
+            sp.set_tag("m", n_chunks - k)
+            sp.set_tag("stripes", stripes.shape[0])
+            sp.set_tag("batched", batched)
+        if batched:
+            parity = np.asarray(ec_impl.encode_stripes(stripes))
+            return _encode_assemble(stripes, parity, k, want, sp=sp)
+        return _encode_scalar(sinfo, ec_impl, stripes, want, k, n_chunks,
+                              mapping)
 
 
 def encode(sinfo: StripeInfo, ec_impl, data: bytes | np.ndarray,
@@ -230,8 +260,16 @@ async def encode_async(sinfo: StripeInfo, ec_impl,
     if not (batched and service is not None):
         return _encode_framed(sinfo, ec_impl, stripes, want, k, n_chunks,
                               mapping, batched)
-    parity = np.asarray(await service.encode(ec_impl, stripes))
-    return _encode_assemble(stripes, parity, k, want)
+    with tracer.span("ec_encode") as sp:
+        if sp is not None:
+            sp.set_tag("bytes", int(stripes.size))
+            sp.set_tag("k", k)
+            sp.set_tag("m", n_chunks - k)
+            sp.set_tag("stripes", stripes.shape[0])
+            sp.set_tag("batched", True)
+            sp.set_tag("offload", True)
+        parity = np.asarray(await service.encode(ec_impl, stripes))
+        return _encode_assemble(stripes, parity, k, want, sp=sp)
 
 
 def _reconstruct_stack(ec_impl, stacked: Mapping[int, np.ndarray],
@@ -323,18 +361,26 @@ def decode_concat(sinfo: StripeInfo, ec_impl,
 def _decode_concat_framed(sinfo: StripeInfo, ec_impl, work) -> bytes:
     """Inline reconstruction of an already-validated frame."""
     stacked, avail_ids, missing, want, k, n_stripes, mapping = work
-    if callable(getattr(ec_impl, "decode_stripes", None)) and not mapping:
-        recovered = _batched_reconstruct(ec_impl, stacked, avail_ids,
-                                         missing)
-        return _decode_concat_assemble(sinfo, stacked, recovered,
-                                       want, k, n_stripes)
+    with tracer.span("ec_decode") as sp:
+        if sp is not None:
+            sp.set_tag("bytes", int(n_stripes * sinfo.chunk_size
+                                    * len(stacked)))
+            sp.set_tag("k", k)
+            sp.set_tag("missing", missing)
+            sp.set_tag("stripes", n_stripes)
+        if callable(getattr(ec_impl, "decode_stripes", None)) \
+                and not mapping:
+            recovered = _batched_reconstruct(ec_impl, stacked, avail_ids,
+                                             missing)
+            return _decode_concat_assemble(sinfo, stacked, recovered,
+                                           want, k, n_stripes)
 
-    # per-stripe fallback through the scalar contract (reference loop)
-    parts = []
-    for s in range(n_stripes):
-        chunks = {i: stacked[i][s].tobytes() for i in avail_ids}
-        parts.append(ec_impl.decode_concat(chunks, sinfo.chunk_size))
-    return b"".join(parts)
+        # per-stripe fallback through the scalar contract (reference loop)
+        parts = []
+        for s in range(n_stripes):
+            chunks = {i: stacked[i][s].tobytes() for i in avail_ids}
+            parts.append(ec_impl.decode_concat(chunks, sinfo.chunk_size))
+        return b"".join(parts)
 
 
 async def decode_concat_async(sinfo: StripeInfo, ec_impl,
@@ -351,11 +397,18 @@ async def decode_concat_async(sinfo: StripeInfo, ec_impl,
     if not (service is not None and not mapping
             and callable(getattr(ec_impl, "decode_stripes", None))):
         return _decode_concat_framed(sinfo, ec_impl, work)
-    use, src = _reconstruct_stack(ec_impl, stacked, avail_ids)
-    rec = np.asarray(await service.decode(ec_impl, use, tuple(missing), src))
-    recovered = _reconstruct_unstack(rec, missing)
-    return _decode_concat_assemble(sinfo, stacked, recovered, want,
-                                   k, n_stripes)
+    with tracer.span("ec_decode") as sp:
+        if sp is not None:
+            sp.set_tag("k", k)
+            sp.set_tag("missing", missing)
+            sp.set_tag("stripes", n_stripes)
+            sp.set_tag("offload", True)
+        use, src = _reconstruct_stack(ec_impl, stacked, avail_ids)
+        rec = np.asarray(await service.decode(ec_impl, use,
+                                              tuple(missing), src))
+        recovered = _reconstruct_unstack(rec, missing)
+        return _decode_concat_assemble(sinfo, stacked, recovered, want,
+                                       k, n_stripes)
 
 
 def _decode_shards_frame(sinfo: StripeInfo, ec_impl,
@@ -432,12 +485,22 @@ async def decode_shards_async(sinfo: StripeInfo, ec_impl,
             _decode_shards_frame(sinfo, ec_impl, to_decode, need_l,
                                  fragments=True)
         if n_chunks > 0 and rpc < sinfo.chunk_size:
-            frags = np.stack([arrays[h].reshape(n_chunks, rpc)
-                              for h in helpers], axis=1)
-            out = np.asarray(await service.repair(
-                ec_impl, tuple(helpers), tuple(need_l), frags,
-                sinfo.chunk_size))
-            return {need_l[0]: np.ascontiguousarray(out).tobytes()}
+            with tracer.span("ec_recover") as sp:
+                if sp is not None:
+                    sp.set_tag("need", need_l)
+                    sp.set_tag("helpers", helpers)
+                    sp.set_tag("chunks", n_chunks)
+                    sp.set_tag("sub_chunks", sub)
+                    sp.set_tag("sub_chunks_fetched_per_chunk",
+                               next(iter(plan_counts.values())))
+                    sp.set_tag("offload", True)
+                frags = np.stack([arrays[h].reshape(n_chunks, rpc)
+                                  for h in helpers], axis=1)
+                out = np.asarray(await service.repair(
+                    ec_impl, tuple(helpers), tuple(need_l), frags,
+                    sinfo.chunk_size))
+                return {need_l[0]:
+                        np.ascontiguousarray(out).tobytes()}
     if not (service is not None
             and ec_impl.get_sub_chunk_count() == 1
             and not ec_impl.get_chunk_mapping()
@@ -449,12 +512,20 @@ async def decode_shards_async(sinfo: StripeInfo, ec_impl,
     if n_chunks == 0:
         return decode_shards(sinfo, ec_impl, to_decode, need_l,
                              fragments=fragments)
-    stacked = {i: arrays[i].reshape(n_chunks, sinfo.chunk_size)
-               for i in helpers}
-    use, src = _reconstruct_stack(ec_impl, stacked, helpers)
-    rec = np.asarray(await service.decode(ec_impl, use, tuple(need_l), src))
-    return {nid: np.ascontiguousarray(plane).tobytes()
-            for nid, plane in _reconstruct_unstack(rec, need_l).items()}
+    with tracer.span("ec_recover") as sp:
+        if sp is not None:
+            sp.set_tag("need", need_l)
+            sp.set_tag("helpers", helpers)
+            sp.set_tag("chunks", n_chunks)
+            sp.set_tag("offload", True)
+        stacked = {i: arrays[i].reshape(n_chunks, sinfo.chunk_size)
+                   for i in helpers}
+        use, src = _reconstruct_stack(ec_impl, stacked, helpers)
+        rec = np.asarray(await service.decode(ec_impl, use, tuple(need_l),
+                                              src))
+        return {nid: np.ascontiguousarray(plane).tobytes()
+                for nid, plane in
+                _reconstruct_unstack(rec, need_l).items()}
 
 
 def decode_shards(sinfo: StripeInfo, ec_impl, to_decode: Mapping[int, bytes],
@@ -474,34 +545,44 @@ def decode_shards(sinfo: StripeInfo, ec_impl, to_decode: Mapping[int, bytes],
         _decode_shards_frame(sinfo, ec_impl, to_decode, need,
                              fragments=fragments)
 
-    if (sub == 1 and not ec_impl.get_chunk_mapping()
-            and callable(getattr(ec_impl, "decode_stripes", None))
-            and n_chunks > 0):
-        # whole-chunk repair on a batch-capable plugin: ONE device
-        # dispatch for all n_chunks repair units instead of a host
-        # round trip per chunk — the recovery path is the most
-        # bandwidth-hungry consumer (reference batching site:
-        # src/osd/ECUtil.cc:61-131)
-        stacked = {i: arrays[i].reshape(n_chunks, sinfo.chunk_size)
-                   for i in helpers}
-        recovered = _batched_reconstruct(ec_impl, stacked, helpers,
-                                         need)
-        return {nid: np.ascontiguousarray(plane).tobytes()
-                for nid, plane in recovered.items()}
+    with tracer.span("ec_recover") as sp:
+        if sp is not None:
+            sp.set_tag("need", need)
+            sp.set_tag("helpers", helpers)
+            sp.set_tag("chunks", n_chunks)
+            # the sub-chunk repair plan (CLAY fetches fractions of each
+            # helper chunk; RS fetches whole chunks = sub_chunks)
+            sp.set_tag("sub_chunks", sub)
+            sp.set_tag("sub_chunks_fetched_per_chunk",
+                       next(iter(plan_counts.values())))
+        if (sub == 1 and not ec_impl.get_chunk_mapping()
+                and callable(getattr(ec_impl, "decode_stripes", None))
+                and n_chunks > 0):
+            # whole-chunk repair on a batch-capable plugin: ONE device
+            # dispatch for all n_chunks repair units instead of a host
+            # round trip per chunk — the recovery path is the most
+            # bandwidth-hungry consumer (reference batching site:
+            # src/osd/ECUtil.cc:61-131)
+            stacked = {i: arrays[i].reshape(n_chunks, sinfo.chunk_size)
+                       for i in helpers}
+            recovered = _batched_reconstruct(ec_impl, stacked, helpers,
+                                             need)
+            return {nid: np.ascontiguousarray(plane).tobytes()
+                    for nid, plane in recovered.items()}
 
-    outs = {i: [] for i in need}
-    for c in range(n_chunks):
-        chunks = {i: arrays[i][c * repair_per_chunk:
-                               (c + 1) * repair_per_chunk].tobytes()
-                  for i in helpers}
-        decoded = ec_impl.decode(need, chunks, sinfo.chunk_size)
-        for i in need:
-            if len(decoded[i]) != sinfo.chunk_size:
-                raise ErasureCodeError(
-                    f"decode returned {len(decoded[i])} bytes for "
-                    f"shard {i}")
-            outs[i].append(decoded[i])
-    return {i: b"".join(parts) for i, parts in outs.items()}
+        outs = {i: [] for i in need}
+        for c in range(n_chunks):
+            chunks = {i: arrays[i][c * repair_per_chunk:
+                                   (c + 1) * repair_per_chunk].tobytes()
+                      for i in helpers}
+            decoded = ec_impl.decode(need, chunks, sinfo.chunk_size)
+            for i in need:
+                if len(decoded[i]) != sinfo.chunk_size:
+                    raise ErasureCodeError(
+                        f"decode returned {len(decoded[i])} bytes for "
+                        f"shard {i}")
+                outs[i].append(decoded[i])
+        return {i: b"".join(parts) for i, parts in outs.items()}
 
 
 # ---------------------------------------------------------------------------

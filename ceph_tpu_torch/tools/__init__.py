@@ -1,2 +1,2 @@
-"""CLIs: the erasure-code benchmark, ec_tool, the corpus non-regression
-check and the bitmatrix table generator."""
+"""CLIs: the erasure-code benchmark, the bench driver's stages, ec_tool,
+the corpus non-regression check and the bitmatrix table generator."""

@@ -42,9 +42,29 @@ comes out against the host codec:
               seeded multi-erasure patterns, the scalar contract, and
               clay's MSR repair from sub-chunk reads; held against the
               same plugin built with device=cpu. K1 must launch for every plugin but liberation
-              (its GF(2) codec runs on the host), K2 for all;
+              (its GF(2) codec runs on the host), K2 for all; each
+              plugin's run is traced by torch.profiler (phase 10 reads
+              the card's idle share from it);
   phase 9b    the plugins' scalar encode / decode GB/s (ec_benchmark
-              --mode scalar) and K1's time at clay's largest plane batch.
+              --mode scalar) and K1's time at clay's largest plane batch;
+  phase 10    the traced device path: phase 7's default pass with tracing
+              off, with tracing on (GB/s, the critical path's stages per
+              op class, the offload_batch spans), with tracing on under
+              torch.profiler (the card's idle share over the pass: one
+              minus the union of its kernels and copies in the pass's
+              window), and with dispatch profiling on (per 8 MiB encode
+              batch: queue wait, stacking copy, upload, kernel and
+              download by CUDA events, the span's wall time; the legs
+              must fit in it); the copy ledger's h2d / d2h bytes must
+              equal what the pass sent up and brought back, the flight
+              ring must hold no failover or breaker trip; one inline
+              ECUtil encode and decode from host buffers under dispatch
+              profiling (the plugin's legs, equal results); and the idle
+              share of each plugin's run in phase 9, which runs under
+              the profiler;
+  phase 11    the port's bench_driver: --stage device on the card (every
+              key measured) and --stage mesh_scaling over 1, 2 and 4
+              slots of it (bit-identical).
 
 Phase 1 also holds K1 at the plugins' shapes: (1,k,N) -> r for k 3, 6,
 8, 12, r 1-4 and N clay's plane batches and ragged 1 MiB.
@@ -61,6 +81,8 @@ PATH.
 from __future__ import annotations
 
 import argparse
+import contextlib
+import io
 import itertools
 import json
 import os
@@ -95,6 +117,13 @@ MULTI_ERASURES = 8              # seeded patterns of 2..m erasures
 # planes of 16 KiB in batches of nz planes; lrc's and shec's are ragged
 PLUGIN_WIDTHS = (16 << 10, 7 * (16 << 10), 16 * (16 << 10), CHUNK - 1,
                  CHUNK + 128)
+
+# phase 11: the keys of the reference bench driver's device stage
+DEVICE_STAGE_KEYS = ("platform", "backend_init_s", "tpu_encode", "tpu_decode",
+                     "device_peak_gbps", "tpu_encode_roofline_pct",
+                     "tpu_crc32c", "link_h2d_cold_gbps", "link_h2d_gbps",
+                     "tpu_encode_host", "host_encode_link_efficiency",
+                     "scalar_encode", "elapsed_s")
 
 # (bytes/s, dense int8 op/s) by card name: NVIDIA's H100 data sheet
 _CARD_RATES = {"NVIDIA H100 80GB HBM3": (3.35e12, 1979e12),     # SXM
@@ -189,6 +218,109 @@ def device_ops_per_call(torch, fn, reps: int = 10) -> tuple[float, list]:
     ops = [e for e in prof.events()
            if e.device_type == torch.autograd.DeviceType.CUDA]
     return len(ops) / reps, sorted({e.name for e in ops})
+
+
+class DeviceWindow:
+    """torch.profiler's trace of the card around a block: on exit,
+    `window_s` is the block's span on the profiler's clock, `busy_s` the
+    union of the card's kernels, copies and memsets inside it, and
+    `idle_share` one minus their ratio."""
+
+    LABEL = "chip_smoke_window"
+
+    def __init__(self, torch):
+        self.torch = torch
+
+    def __enter__(self):
+        from torch.profiler import ProfilerActivity, profile, record_function
+        self.prof = profile(activities=[ProfilerActivity.CPU,
+                                        ProfilerActivity.CUDA])
+        self.prof.__enter__()
+        self.mark = record_function(self.LABEL)
+        self.mark.__enter__()
+        return self
+
+    def __exit__(self, *exc):
+        self.torch.cuda.synchronize()
+        self.mark.__exit__(*exc)
+        self.prof.__exit__(*exc)
+        if exc[0] is None:
+            self._measure()
+        return False
+
+    def _measure(self) -> None:
+        cuda = self.torch.autograd.DeviceType.CUDA
+        events = self.prof.events()
+        marks = [e for e in events
+                 if e.name == self.LABEL and e.device_type != cuda]
+        if len(marks) != 1:
+            raise AssertionError(f"{len(marks)} window marks in the trace")
+        lo, hi = marks[0].time_range.start, marks[0].time_range.end
+        spans = sorted((max(e.time_range.start, lo), min(e.time_range.end, hi))
+                       for e in events
+                       if e.device_type == cuda and e.name != self.LABEL
+                       and e.time_range.end > lo and e.time_range.start < hi)
+        busy, end = 0.0, lo
+        for a, b in spans:
+            if b > end:
+                busy += b - max(a, end)
+                end = b
+        self.device_ops = len(spans)
+        self.window_s = (hi - lo) / 1e6
+        self.busy_s = busy / 1e6
+        if not 0.0 < self.busy_s <= self.window_s:
+            raise AssertionError(f"device busy {self.busy_s} s in a window "
+                                 f"of {self.window_s} s ({len(spans)} "
+                                 f"device operations)")
+        self.idle_share = 1.0 - self.busy_s / self.window_s
+
+
+class TracedWindow:
+    """The port's observability around a block: the tracer on (and
+    dispatch profiling when asked), the copy ledger and flight ring
+    reset; on exit the tracer is off again and `spans`, `ledger` and
+    `events` hold what the block left."""
+
+    def __init__(self, profile_dispatch: bool = False, device=None):
+        self.profile_dispatch = profile_dispatch
+        self.device = device             # a DeviceWindow to nest, or None
+
+    def __enter__(self):
+        from ceph_tpu_torch.utils import copytrack, flight, tracer
+        self.tracer, self.copytrack, self.flight = tracer, copytrack, flight
+        tracer.reset()
+        copytrack.reset()
+        flight.reset()
+        tracer.enable(max_spans=1 << 16)
+        tracer.set_profile_dispatch(self.profile_dispatch)
+        if self.device is not None:
+            self.device.__enter__()
+        return self
+
+    def __exit__(self, *exc):
+        try:
+            if self.device is not None:
+                self.device.__exit__(*exc)
+        finally:
+            self.tracer.disable()
+            self.tracer.set_profile_dispatch(False)
+        self.spans = [sp for t in self.tracer.dump()["traces"]
+                      for sp in t["spans"]]
+        self.ledger = self.copytrack.snapshot()["stages"]
+        self.events = self.flight.dump()["events"]
+        return False
+
+
+def share(x: float | None) -> str:
+    """A share as a percentage; n/a where nothing was traced."""
+    return "n/a" if x is None else f"{x * 100:.2f}%"
+
+
+def quantiles(values) -> dict:
+    """Median and 90th percentile (numpy's linear interpolation)."""
+    import numpy as np
+    return {"median": float(np.median(values)),
+            "p90": float(np.percentile(values, 90)), "n": len(values)}
 
 
 def max_abs_err(a, b) -> int:
@@ -319,11 +451,12 @@ def phase_mesh(torch, np, dev, rand_bytes) -> list[str]:
     return [label for label, _, _ in layouts]
 
 
-def phase_service(torch, np, devices, **settings) -> dict:
+def phase_service(torch, np, devices, window=None, **settings) -> dict:
     """One pass of the offload service over `devices`: every write's
     encode_async, every sync-path shard's calculate_async, and
     decode_concat_async / decode_shards_async for the patterns of
     ERASURES, all concurrent, held byte-equal to the synchronous path.
+    `window`, a context manager, is entered around the pass alone.
     Returns the service's numbers for the pass."""
     import asyncio
 
@@ -373,7 +506,9 @@ def phase_service(torch, np, devices, **settings) -> dict:
     from ceph_tpu_torch.ops import crc32c, rs_codec
     # the references above launched K1 themselves: count from here
     rs_codec.launches = crc32c.launches = rs_codec.encode_local_launches = 0
-    (enc, csums, concat, rebuilt), wall, stats, devs = asyncio.run(drive())
+    with window if window is not None else contextlib.nullcontext():
+        (enc, csums, concat, rebuilt), wall, stats, devs = \
+            asyncio.run(drive())
     launches = {"gf_bitmatrix": rs_codec.launches,
                 "crc32c_blocks": crc32c.launches,
                 "gf_bitmatrix_csum": rs_codec.encode_local_launches}
@@ -394,8 +529,14 @@ def phase_service(torch, np, devices, **settings) -> dict:
         raise AssertionError(f"no batch ran on cuda:0: {sorted(devs)}")
     if stats["coalesced_ops"] <= 0:
         raise AssertionError(f"nothing coalesced: {stats}")
+    # bytes a pass sends to its slots and brings back: every encode,
+    # decode_concat and decode_shards job is k chunks up; parity, the
+    # lost data chunks and the lost chunks come down (the crc jobs stay
+    # on the host unless crc_device is on)
+    up = 3 * len(writes) * K * CHUNK
+    down = CHUNK * sum(M + sum(1 for i in p if i < K) + len(p) for p in lost)
     return {"wall_s": wall, "bytes": nbytes, "stats": stats,
-            "launches": launches,
+            "launches": launches, "device_up": up, "device_down": down,
             "ms_per_batch": wall / stats["batches"] * 1e3,
             "gb_per_s": nbytes / wall / 1e9,
             "devices": {d: {"batches": v["batches"], "busy_s": v["busy_s"]}
@@ -448,6 +589,245 @@ def service_split(torch, np, dev) -> dict:
     return split
 
 
+def critpath_by_class(spans: list[dict]) -> dict:
+    """The critical path of every trace in `spans`, averaged per op
+    class: ops, mean total us and mean us per stage."""
+    from ceph_tpu_torch.utils import critpath
+    by_trace: dict[str, list[dict]] = {}
+    for sp in spans:
+        by_trace.setdefault(sp["trace_id"], []).append(sp)
+    sums: dict[str, dict] = {}
+    for trace in by_trace.values():
+        cp = critpath.critical_path(trace)
+        c = sums.setdefault(cp["op_class"], {
+            "ops": 0, "total_us": 0.0,
+            "stages": dict.fromkeys(critpath.STAGES, 0.0)})
+        c["ops"] += 1
+        c["total_us"] += cp["total_us"]
+        for stage, us in cp["stages"].items():
+            c["stages"][stage] += us
+    return {cls: {"ops": c["ops"], "total_us": c["total_us"] / c["ops"],
+                  "stages": {st: us / c["ops"]
+                             for st, us in c["stages"].items()}}
+            for cls, c in sorted(sums.items())}
+
+
+def dispatch_split(spans: list[dict]) -> dict:
+    """Where an 8 MiB encode batch's time goes, from a pass traced with
+    dispatch profiling on: medians over the encode batches (offload_batch
+    spans of K chunks with a tpu_encode_dispatch child) of the riders'
+    queue wait, the stacking copy, the legs the CUDA events timed, the
+    span's wall time, and the wall time outside the legs (host time in
+    the executor). Fails unless every batch span's legs fit in its wall
+    time (each figure is rounded to 0.1 us)."""
+    by_id = {sp["span_id"]: sp for sp in spans}
+    children: dict[str, list[str]] = {}
+    for sp in spans:
+        children.setdefault(sp["parent_id"], []).append(sp["name"])
+    legs = ("h2d_us", "kernel_us", "d2h_us")
+    batches = [sp for sp in spans if sp["name"] == "offload_batch"]
+    for sp in batches:
+        if sum(sp["tags"].get(leg, 0.0) for leg in legs) > \
+                sp["duration_us"] + 0.2:
+            raise AssertionError(f"offload_batch legs exceed its wall: {sp}")
+    enc = [sp for sp in batches if sp["tags"]["bytes"] == K * CHUNK
+           and "tpu_encode_dispatch" in children.get(sp["span_id"], ())]
+    if not enc or any(leg not in sp["tags"] for sp in enc for leg in legs):
+        raise AssertionError(f"{len(enc)} 8 MiB encode batches, some "
+                             f"without timed legs")
+    waits = [sp["duration_us"] for sp in spans
+             if sp["name"] == "offload_queue_wait"
+             and by_id.get(sp["parent_id"], {}).get("name") == "ec_encode"]
+    out = {"batches": len(enc), "queue_wait_us": quantiles(waits)}
+    for key in ("copy_us",) + legs:
+        out[key] = quantiles([sp["tags"][key] for sp in enc])
+    out["wall_us"] = quantiles([sp["duration_us"] for sp in enc])
+    out["host_us"] = quantiles([
+        sp["duration_us"] - sum(sp["tags"][leg] for leg in legs)
+        for sp in enc])
+    return out
+
+
+def inline_split(torch, np, dev) -> dict:
+    """The cuda plugin's host path under dispatch profiling: one ECUtil
+    encode of 4 stripes and a 3-erasure decode_concat of it, inline; the
+    results must equal the untraced calls', and each tpu_*_dispatch
+    span's legs (CUDA events per sub-batch, one after another) must fit
+    in its wall time. Returns each span's legs and wall time."""
+    from ceph_tpu_torch.ec.registry import factory
+    from ceph_tpu_torch.osd import ec_util
+    code = factory("cuda", {"k": str(K), "m": str(M), "device": str(dev)})
+    sinfo = ec_util.StripeInfo(K, K * CHUNK)
+    data = np.random.default_rng(13).integers(
+        0, 256, 4 * sinfo.stripe_width, dtype=np.uint8).tobytes()
+    want = {i: bytes(b) for i, b in ec_util.encode(sinfo, code, data).items()}
+    have = {i: b for i, b in want.items() if i not in ERASURES[0]}
+    win = TracedWindow(profile_dispatch=True)
+    with win:
+        got = {i: bytes(b)
+               for i, b in ec_util.encode(sinfo, code, data).items()}
+        concat = ec_util.decode_concat(sinfo, code, have)
+    if got != want or concat != data:
+        raise AssertionError("a profiled inline encode / decode differs")
+    legs = ("h2d_us", "kernel_us", "d2h_us")
+    out = {}
+    for sp in win.spans:
+        if sp["name"] not in ("tpu_encode_dispatch", "tpu_decode_dispatch"):
+            continue
+        if any(leg not in sp["tags"] for leg in legs) or \
+                sum(sp["tags"][leg] for leg in legs) > sp["duration_us"] + 0.2:
+            raise AssertionError(f"plugin legs missing or past wall: {sp}")
+        out[sp["name"]] = {**{leg: sp["tags"][leg] for leg in legs},
+                           "wall_us": sp["duration_us"],
+                           "bytes": sp["tags"]["bytes"]}
+    if len(out) != 2:
+        raise AssertionError(f"dispatch spans {sorted(out)}")
+    return out
+
+
+def phase_traced(torch, np, dev) -> dict:
+    """Phase 7's default pass with tracing off, with tracing on, with
+    tracing on under the profiler and with dispatch profiling on; what
+    the spans, the card's trace, the copy ledger and the flight ring say
+    of it."""
+    out = {"off": phase_service(torch, np, [dev])}
+    traced = TracedWindow()
+    out["traced"] = phase_service(torch, np, [dev], window=traced)
+    batches = [sp["duration_us"] for sp in traced.spans
+               if sp["name"] == "offload_batch"]
+    if len(batches) != out["traced"]["stats"]["batches"]:
+        raise AssertionError(f"{len(batches)} offload_batch spans for "
+                             f"{out['traced']['stats']['batches']} batches")
+    out["batch_wall_us"] = quantiles(batches)
+    out["critpath"] = critpath_by_class(traced.spans)
+    card = DeviceWindow(torch)
+    out["profiled"] = phase_service(torch, np, [dev],
+                                    window=TracedWindow(device=card))
+    out["idle"] = {"share": card.idle_share, "busy_s": card.busy_s,
+                   "window_s": card.window_s, "device_ops": card.device_ops}
+    legs = TracedWindow(profile_dispatch=True)
+    out["dispatch"] = phase_service(torch, np, [dev], window=legs)
+    out["split"] = dispatch_split(legs.spans)
+    for label in ("traced", "profiled", "dispatch"):
+        if out[label]["launches"]["gf_bitmatrix"] <= 0:
+            raise AssertionError(f"the {label} pass never launched K1")
+    # the copy ledger against what the pass moved
+    res = out["dispatch"]
+    up = sum(sp["tags"]["bytes"] for sp in legs.spans
+             if sp["name"] == "offload_batch"
+             and sp["tags"]["device"] != "host")
+    out["ledger"] = {stage: legs.ledger[stage] for stage in
+                     ("buffer_to_staging", "h2d", "d2h")}
+    if not (legs.ledger["h2d"]["copied_bytes"] == res["device_up"] == up):
+        raise AssertionError(f"ledger h2d {legs.ledger['h2d']}, spans {up}, "
+                             f"the pass sent {res['device_up']}")
+    if legs.ledger["d2h"]["copied_bytes"] != res["device_down"]:
+        raise AssertionError(f"ledger d2h {legs.ledger['d2h']}, the pass "
+                             f"brought back {res['device_down']}")
+    bad = [ev for ev in legs.events + traced.events
+           if ev["type"] in ("device_failover", "breaker_trip")]
+    if bad:
+        raise AssertionError(f"flight events of a failing card: {bad}")
+    out["flight_events"] = len(legs.events) + len(traced.events)
+    out["inline"] = inline_split(torch, np, dev)
+    return out
+
+
+def log_traced(obs: dict) -> None:
+    """Phase 10's lines: each pass's GB/s, the batch spans, the critical
+    path per op class, the card's idle share, the profiled split of an
+    8 MiB encode batch and the copy ledger."""
+    for label, what in (("off", "tracing off"), ("traced", "tracing on"),
+                        ("profiled", "tracing on, under torch.profiler"),
+                        ("dispatch", "dispatch profiling on")):
+        r = obs[label]
+        log(f"phase 10: default pass, {what}: {r['gb_per_s']:.3f} GB/s "
+            f"({r['wall_s'] * 1e3:.1f} ms for {r['bytes'] / 2**20:.0f} MiB, "
+            f"{r['stats']['batches']} batches, host clock), launches "
+            f"{r['launches']}")
+    bw = obs["batch_wall_us"]
+    log(f"phase 10: {bw['n']} offload_batch spans, wall median "
+        f"{bw['median']:.1f} us, p90 {bw['p90']:.1f} us")
+    for cls, c in obs["critpath"].items():
+        stages = ", ".join(f"{st} {us:.1f}" for st, us in c["stages"].items())
+        log(f"phase 10: critical path of {cls} ({c['ops']} traces), mean "
+            f"us: total {c['total_us']:.1f} = {stages}")
+    idle = obs["idle"]
+    card_batches = sum(d["batches"] for label, d in
+                       obs["profiled"]["devices"].items() if label != "host")
+    log(f"phase 10: the card over the profiled pass: busy "
+        f"{idle['busy_s'] * 1e3:.2f} ms of a {idle['window_s'] * 1e3:.1f} ms "
+        f"window ({idle['device_ops']} kernels and copies, "
+        f"{idle['busy_s'] * 1e3 / card_batches:.3f} ms per batch on the "
+        f"card), idle share {share(idle['share'])}")
+    sp = obs["split"]
+    log(f"phase 10: per 8 MiB encode batch ({sp['batches']} batches, "
+        f"dispatch profiling, medians in us): queue wait "
+        f"{sp['queue_wait_us']['median']:.1f}, stacking copy "
+        f"{sp['copy_us']['median']:.1f}, h2d {sp['h2d_us']['median']:.1f}, "
+        f"kernel {sp['kernel_us']['median']:.1f}, d2h "
+        f"{sp['d2h_us']['median']:.1f} (CUDA events), span wall "
+        f"{sp['wall_us']['median']:.1f}, host time in the executor "
+        f"{sp['host_us']['median']:.1f}; every batch's legs within its wall")
+    led = obs["ledger"]
+    log(f"phase 10: copy ledger of the pass: h2d "
+        f"{led['h2d']['copied_bytes']} bytes, d2h "
+        f"{led['d2h']['copied_bytes']} bytes (equal to what the pass sent "
+        f"and brought back), buffer_to_staging "
+        f"{led['buffer_to_staging']['copied_bytes']} copied / "
+        f"{led['buffer_to_staging']['referenced_bytes']} referenced; "
+        f"{obs['flight_events']} flight events, no failover or breaker "
+        f"trip, fallback_ops 0")
+    for name, sp in obs["inline"].items():
+        log(f"phase 10: inline ECUtil, {name} of {sp['bytes'] / 2**20:.0f} "
+            f"MiB from host buffers, dispatch profiling: h2d "
+            f"{sp['h2d_us']:.1f} us, kernel {sp['kernel_us']:.1f} us, d2h "
+            f"{sp['d2h_us']:.1f} us (CUDA events, summed over sub-batches), "
+            f"span wall {sp['wall_us']:.1f} us; results equal untraced")
+
+
+def plugins_idle(windows: dict) -> dict:
+    """The card's busy time and idle share in each plugin's run of phase
+    9, from the DeviceWindow it ran in."""
+    out = {}
+    for pname, w in windows.items():
+        out[pname] = {"share": w.idle_share, "busy_s": w.busy_s,
+                      "window_s": w.window_s, "device_ops": w.device_ops}
+        log(f"phase 10: {pname} (phase 9's run, under the profiler): busy "
+            f"{w.busy_s * 1e3:.2f} ms of {w.window_s * 1e3:.1f} ms, idle "
+            f"share {share(w.idle_share)}")
+    return out
+
+
+def phase_bench_driver(dev, yardstick_gbps: float) -> dict:
+    """The port's bench_driver through its `main`: --stage device, every
+    key of the reference's stage present and measured, and --stage
+    mesh_scaling, bit-identical over 1, 2 and 4 slots of the card."""
+    from ceph_tpu_torch.tools import bench_driver
+    stages = {}
+    for stage in ("device", "mesh_scaling"):
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            rc = bench_driver.main(["--stage", stage, "--device", str(dev)])
+        line = buf.getvalue().strip().splitlines()[-1]
+        log(f"phase 11: bench_driver --stage {stage}: {line}")
+        if rc != 0:
+            raise AssertionError(f"bench_driver --stage {stage} exited {rc}")
+        stages[stage] = json.loads(line)
+    dstage = stages["device"]
+    missing = [key for key in DEVICE_STAGE_KEYS if key not in dstage]
+    if missing or any(dstage[key] <= 0 for key in DEVICE_STAGE_KEYS
+                      if key != "platform"):
+        raise AssertionError(f"device stage keys missing {missing} or not "
+                             f"measured: {dstage}")
+    if not stages["mesh_scaling"]["scaling_bit_identical"]:
+        raise AssertionError("mesh_scaling: parity differs across meshes")
+    log(f"phase 11: device_peak_gbps {dstage['device_peak_gbps']} (x + 1.0 "
+        f"over one buffer) beside phase 4's read yardstick "
+        f"{yardstick_gbps:.1f} GB/s")
+    return stages
+
+
 def plugin_chunk(code) -> int:
     """The smallest chunk of at least 1 MiB that the plugin lays out as it
     is and that BlueStore's 4 KiB csum blocks tile: 1 MiB, except for
@@ -485,7 +865,7 @@ def erasure_patterns(code, rng) -> list[tuple[int, ...]]:
     return [(i,) for i in range(n)] + multi
 
 
-def phase_plugins(torch, np, dev) -> dict:
+def phase_plugins(torch, np, dev, window=None) -> dict:
     """Every plugin on `dev`: the corpus through ec_non_regression, then
     each of PLUGINS at full width through ECUtil (encode an object of
     PLUGIN_STRIPES stripes, K2 checksums of every shard, decode_concat
@@ -493,8 +873,10 @@ def phase_plugins(torch, np, dev) -> dict:
     seeded multi-erasure patterns), its scalar encode and decode of one
     stripe, and for clay one MSR repair from sub-chunk reads. Outputs are held against the same plugin built with
     device=cpu on the same bytes and against the payload. Each plugin's
-    launch counts are read from 0 around its own run. Returns the
-    measurements; asserts nothing about the counts."""
+    launch counts are read from 0 around its own run. `window(name)`,
+    when given, returns a context manager entered around each plugin's
+    run on the card. Returns the measurements; asserts nothing about the
+    counts."""
     from ceph_tpu_torch.ec.registry import factory
     from ceph_tpu_torch.ops import crc32c, rs_codec
     from ceph_tpu_torch.osd import ec_util
@@ -529,28 +911,31 @@ def phase_plugins(torch, np, dev) -> dict:
         patterns = erasure_patterns(ref, rng)
         stripe = payload[:sinfo.stripe_width]
         rs_codec.launches = crc32c.launches = 0
-        t0 = time.perf_counter()
-        shards = {i: bytes(b)
-                  for i, b in ec_util.encode(sinfo, code, payload).items()}
-        csums = {i: dev_cs.calculate(b) for i, b in shards.items()}
-        scalar = code.encode(range(n), stripe)
-        for lost in patterns:
-            have = {i: b for i, b in shards.items() if i not in lost}
-            if ec_util.decode_concat(sinfo, code, have) != payload:
-                raise AssertionError(f"{name} decode_concat {lost}")
-            rebuilt = ec_util.decode_shards(sinfo, code, have, lost)
-            if any(rebuilt[i] != shards[i] for i in lost):
-                raise AssertionError(f"{name} decode_shards {lost}")
-        lost = patterns[n]
-        have = {i: b for i, b in scalar.items() if i not in lost}
-        if code.decode(set(lost), have, chunk) != {i: scalar[i]
-                                                   for i in lost}:
-            raise AssertionError(f"{name} scalar decode {lost}")
-        repair = None
-        if name == "clay":
-            repair = clay_repair(np, ec_util, code, sinfo, shards, chunk)
-        sync()
-        seconds = time.perf_counter() - t0
+        win = window(name) if window is not None else contextlib.nullcontext()
+        with win:
+            t0 = time.perf_counter()
+            shards = {i: bytes(b) for i, b in
+                      ec_util.encode(sinfo, code, payload).items()}
+            csums = {i: dev_cs.calculate(b) for i, b in shards.items()}
+            scalar = code.encode(range(n), stripe)
+            for lost in patterns:
+                have = {i: b for i, b in shards.items() if i not in lost}
+                if ec_util.decode_concat(sinfo, code, have) != payload:
+                    raise AssertionError(f"{name} decode_concat {lost}")
+                rebuilt = ec_util.decode_shards(sinfo, code, have, lost)
+                if any(rebuilt[i] != shards[i] for i in lost):
+                    raise AssertionError(f"{name} decode_shards {lost}")
+            lost = patterns[n]
+            have = {i: b for i, b in scalar.items() if i not in lost}
+            if code.decode(set(lost), have, chunk) != {i: scalar[i]
+                                                       for i in lost}:
+                raise AssertionError(f"{name} scalar decode {lost}")
+            repair = None
+            if name == "clay":
+                repair = clay_repair(np, ec_util, code, sinfo, shards,
+                                     chunk)
+            sync()
+            seconds = time.perf_counter() - t0
         launches = {"gf_bitmatrix": rs_codec.launches,
                     "crc32c_blocks": crc32c.launches}
         # what came out, against the CPU build of the same plugin
@@ -1186,7 +1571,14 @@ def main() -> int:
 
     # -- phase 9: every plugin on the card ----------------------------------
     t0 = time.perf_counter()
-    plugins = phase_plugins(torch, np, dev)
+    # each plugin runs in a trace of the card: phase 10 reads the idle
+    # shares (the profiler adds a few percent of host time)
+    plugin_windows: dict = {}
+
+    def plugin_window(pname):
+        plugin_windows[pname] = DeviceWindow(torch)
+        return plugin_windows[pname]
+    plugins = phase_plugins(torch, np, dev, window=plugin_window)
     corpus = plugins["corpus"]
     log(f"phase 9: ec_non_regression check_all over {corpus['entries']} "
         f"corpus entries with device={dev}: every archived chunk "
@@ -1247,6 +1639,20 @@ def main() -> int:
         f"host apply (upload, K1, download) {cb['host_apply_ms']:.3f} ms "
         f"(median of 10, host clock); {time.perf_counter() - t0:.1f} s")
     report["plugin_bench"] = pbench
+
+    # -- phase 10: the traced device path -------------------------------------
+    t0 = time.perf_counter()
+    obs = phase_traced(torch, np, dev)
+    log_traced(obs)
+    obs["plugins_idle"] = plugins_idle(plugin_windows)
+    report["traced"] = obs
+    log(f"phase 10: {time.perf_counter() - t0:.1f} s")
+
+    # -- phase 11: the port's bench_driver ------------------------------------
+    t0 = time.perf_counter()
+    report["bench_driver"] = phase_bench_driver(
+        dev, report["read_yardstick"]["gb_per_s"])
+    log(f"phase 11: {time.perf_counter() - t0:.1f} s")
     plugin_launches = {kname: sum(plugins[pname]["launches"][kname]
                                   for pname, _ in PLUGINS)
                        for kname in ("gf_bitmatrix", "crc32c_blocks")}

@@ -52,7 +52,13 @@ def test_every_module_is_listed():
                      "ceph_tpu_torch.parallel.mesh",
                      "ceph_tpu_torch.utils.dout",
                      "ceph_tpu_torch.utils.perf_counters",
-                     "ceph_tpu_torch.utils.throttle"):
+                     "ceph_tpu_torch.utils.throttle",
+                     "ceph_tpu_torch.utils.config",
+                     "ceph_tpu_torch.utils.tracer",
+                     "ceph_tpu_torch.utils.critpath",
+                     "ceph_tpu_torch.utils.flight",
+                     "ceph_tpu_torch.utils.copytrack",
+                     "ceph_tpu_torch.tools.bench_driver"):
         assert expected in mods
 
 
@@ -110,7 +116,8 @@ def _entry_points():
     from ceph_tpu_torch.ec import gf256
     from ceph_tpu_torch.ec.registry import factory
     from ceph_tpu_torch.ops import crc32c, rs_codec
-    from ceph_tpu_torch.tools import ec_benchmark, ec_non_regression, ec_tool
+    from ceph_tpu_torch.tools import (bench_driver, ec_benchmark,
+                                      ec_non_regression, ec_tool)
     from ceph_tpu_torch.utils.checksummer import Checksummer
     M = gf256.reed_sol_van_matrix(4, 2)
     data = np.zeros((4, 128), dtype=np.uint8)
@@ -136,6 +143,8 @@ def _entry_points():
             "crc32c", 4096, use_device=True).calculate(bytes(4096)),
         "ec_benchmark": lambda: ec_benchmark.run_bench(ec_benchmark.BenchConfig(
             plugin="cuda", mode="batched", size=4096, batch=1)),
+        "bench_driver device": lambda: bench_driver.stage_device(),
+        "bench_driver probe": lambda: bench_driver.stage_probe(),
         "offload service": _new_service,
         "make_mesh": lambda: mesh.make_mesh(),
         "mesh_storage_impl": lambda: mesh.mesh_storage_impl(
