@@ -51,12 +51,24 @@ is no event and no extra synchronize. The copy ledger gets
 `buffer_to_staging`, `h2d` and `d2h`; the flight recorder
 `device_failover`, `breaker_trip` and `breaker_recover`.
 
-Left out of this port, with the reference modules they need: sanitizer
-view guards and locksets, interleave yield points and fault injection,
-the topology shared across a reactor pool (each service keeps its own,
-the reference's unpooled behaviour), `submit_threadsafe`, the
-`ec_offload_*` config schema and observers, the admin-socket commands
-and the mgr device rows. `apply_setting` takes the same option names.
+One front end per event loop; under a thread `ShardPool`
+(utils/reactor.py) each shard's loop gets its own admission queue,
+buckets, slots and staging pages, while the device states, breakers and
+serving mesh are ONE `_Topology` hung off the pool (`pool.shared`), so
+every shard sees one rotation decision per device. Cross-shard callers
+hand jobs over through `submit_threadsafe`; admin-socket hooks read and
+flush through `status()`/`flush()`, which run on the service's loop.
+
+Safety and test hooks, as in the reference: the tracked locks and the
+`_Topology.note` taps feed the sanitizer's lockset recorder and
+lockdep; staging pages register with its view guards and recycle in
+`put_staging`; `qa.faultinject` device faults send a batch straight to
+the host fallback; `qa.interleave` yields at `offload_dispatch`.
+`OFFLOAD_OPTIONS`/`register_config` declare the `ec_offload_*` options
+and hot-apply them to every live service.
+
+Left out of this port: the device partition a process-backed reactor
+worker takes (it comes with that pool), and the mgr device rows.
 """
 from __future__ import annotations
 
@@ -72,7 +84,9 @@ import numpy as np
 import torch
 
 from ceph_tpu_torch import device as _device
-from ceph_tpu_torch.utils import copytrack, flight, tracer
+from ceph_tpu_torch.qa import faultinject, interleave
+from ceph_tpu_torch.utils import (copytrack, flight, reactor, sanitizer,
+                                  tracer)
 from ceph_tpu_torch.utils.dout import dout
 from ceph_tpu_torch.utils.perf_counters import (TYPE_GAUGE, TYPE_HISTOGRAM,
                                                 PerfCountersCollection)
@@ -95,7 +109,8 @@ _DEFAULTS: dict[str, Any] = {
     "device_peak_gbps": 0.0,
 }
 
-#: one service per event loop (a service holds loop-bound primitives)
+#: one service per event loop (a service holds loop-bound primitives);
+#: under a reactor pool the device topology is shared (see _topo)
 _instances_lock = threading.Lock()
 _instances: dict[Any, "OffloadService"] = {}
 
@@ -169,6 +184,12 @@ def _perf():
     return pc
 
 
+class _InjectedDeviceFailure(RuntimeError):
+    """faultinject device fault: deterministic — the batch goes
+    straight to the host fallback (one armed failure = one fallback
+    batch), never retried on another card."""
+
+
 def _slot_labels(devices: list[torch.device]) -> list[str]:
     """One label per slot: `cuda:N` for a card, `cpu:I` for the I-th
     CPU entry (the reference's virtual CPU devices are cpu:0..cpu:7);
@@ -237,8 +258,10 @@ class _Bucket:
 
 
 class _DeviceState:
-    """Identity + circuit-breaker state for one device; transitions take
-    `lock` (breaker evidence arrives from the executor's threads)."""
+    """Identity + circuit-breaker state for one device. Under a reactor
+    pool every shard's service holds a slot onto the SAME state, so
+    breaker evidence (from every shard loop and the executor's threads)
+    feeds one rotation decision per device; transitions take `lock`."""
 
     __slots__ = ("label", "device", "lock", "degraded", "degraded_since",
                  "consec_failures", "probe_owner", "last_error")
@@ -246,7 +269,9 @@ class _DeviceState:
     def __init__(self, label: str, device: torch.device | None):
         self.label = label
         self.device = device             # None = the host lane
-        self.lock = threading.Lock()
+        # lockset-recorded: the sanitizer proves the "transitions take
+        # lock" contract at run time
+        self.lock = sanitizer.make_lock(f"devstate:{label}")
         self.degraded = False
         self.degraded_since = 0.0
         self.consec_failures = 0
@@ -258,20 +283,33 @@ class _DeviceState:
 
 
 class _Topology:
-    """The device states, the serving mesh and the mesh breaker."""
+    """The cross-shard half of the service: device states, the serving
+    mesh and the mesh breaker. One per reactor pool (shared by every
+    shard's service) or one per unpooled service."""
 
     def __init__(self):
-        self.lock = threading.Lock()
+        self.lock = sanitizer.make_lock("offload_topology")
         self.states: list[_DeviceState] | None = None
+        #: the device list the states were built over (every shard must
+        #: name the same one)
+        self.devices: list[torch.device] | None = None
         self.mesh = None
         self.mesh_fns: dict[tuple, Callable] = {}
         self.mesh_degraded = False
         self.mesh_degraded_since = 0.0
         self.mesh_probe_inflight = False
 
+    def note(self, field: str, write: bool) -> None:
+        """Lockset-recorder tap: every shard thread touches this
+        topology, so each field access feeds the sanitizer's conflict
+        analysis (no-op unless recording is armed)."""
+        sanitizer.note_shared_access(self, field, write)
+
     def reset(self) -> None:
         with self.lock:
+            self.note("states", write=True)
             self.states = None
+            self.devices = None
             self.mesh = None
             self.mesh_fns.clear()
             self.mesh_degraded = False
@@ -281,10 +319,15 @@ class _Topology:
         """Build (once) the device list and, for two or more devices,
         the stripe-only serving mesh over them (every device does
         full-rate data-parallel work; a shard axis would only add padded
-        parity rows at m=3)."""
+        parity rows at m=3). Later callers, other shards' services,
+        reuse it; one naming a different list raises ValueError rather
+        than being served on the first caller's devices. The mesh is
+        built outside the lock (a racing duplicate build is discarded)."""
+        devices = list(devices)
         with self.lock:
+            self.note("states", write=False)
             if self.states is not None:
-                return self.states
+                return self._checked(devices)
         states = [_DeviceState(label, dev)
                   for label, dev in zip(_slot_labels(devices), devices)]
         mesh = None
@@ -295,30 +338,45 @@ class _Topology:
             dout("offload", 5, f"offload mesh up: {len(states)} devices, "
                                f"shape {mesh.shape}")
         with self.lock:
+            self.note("states", write=True)
             if self.states is None:       # first finisher publishes
                 self.states = states
+                self.devices = devices
                 self.mesh = mesh
-            return self.states
+            return self._checked(devices)
+
+    def _checked(self, devices: list[torch.device]) -> list[_DeviceState]:
+        """The published states, if they were built over `devices`
+        (caller holds the lock)."""
+        if devices != self.devices:
+            raise ValueError(
+                f"offload topology is shared by this reactor pool and "
+                f"serves {[str(d) for d in self.devices]}; a service "
+                f"over {[str(d) for d in devices]} cannot join it")
+        return self.states
 
     def mesh_fn(self, cache_key: tuple, M: np.ndarray) -> Callable:
         """The cached stripe-sharded apply for matrix `M` (its operands
         are built on every device outside the lock; a racing double
         build loses to setdefault)."""
         with self.lock:
+            self.note("mesh_fns", write=False)
             fn = self.mesh_fns.get(cache_key)
             mesh = self.mesh
         if fn is None:
             from ceph_tpu_torch.parallel import mesh as mesh_lib
             built = mesh_lib.sharded_apply_fn(mesh, M)
             with self.lock:
+                self.note("mesh_fns", write=True)
                 fn = self.mesh_fns.setdefault(cache_key, built)
         return fn
 
 
 class _DeviceSlot:
-    """The service's dispatch handle onto a device: pipeline semaphore,
-    reused staging pages (pinned for a card), one copy stream, and the
-    device's breaker state (fields proxy through to it)."""
+    """One shard's dispatch handle onto a device: pipeline semaphore,
+    reused staging pages (pinned for a card), one copy stream — all
+    loop-bound, never shared — and the cross-shard `_DeviceState`
+    breaker (fields proxy through to it)."""
 
     __slots__ = ("state", "sem", "depth", "inflight", "staging", "stream")
 
@@ -388,12 +446,23 @@ class _DeviceSlot:
                     best < 0 or t.numel() < self.staging[best].numel()):
                 best = i
         if best >= 0:
-            return self.staging.pop(best)
-        return torch.empty(1 << max(12, (nbytes - 1).bit_length()),
-                           dtype=torch.uint8,
-                           pin_memory=self.stream is not None)
+            buf = self.staging.pop(best)
+        else:
+            buf = torch.empty(1 << max(12, (nbytes - 1).bit_length()),
+                              dtype=torch.uint8,
+                              pin_memory=self.stream is not None)
+        if sanitizer.view_guards_active():
+            # generation-track the page (the tensor object itself): views
+            # handed out against this hand-out go stale at put_staging
+            sanitizer.register_buffer(buf, "staging")
+        return buf
 
     def put_staging(self, buf: torch.Tensor) -> None:
+        if sanitizer.view_guards_active():
+            # recycle point, reached only after the batch's copy stream
+            # synchronized: a straggler view over this page raises
+            # instead of reading the next batch's bytes
+            sanitizer.recycle_buffer(buf)
         self.staging.append(buf)
         while len(self.staging) > self.depth:
             # keep the largest pages (they satisfy every batch size)
@@ -439,13 +508,31 @@ class OffloadService:
         # attributed to "host"
         self.device_stats: dict[str, dict] = {}
         self._dev_lock = threading.Lock()
-        self._topo = _Topology()
+        # the device/breaker/mesh half: ONE object shared by every shard
+        # of a reactor pool, private for an unpooled loop. Resolved per
+        # access (the _topo property): services are cached per loop
+        # across pool lifetimes, and a service made before its loop
+        # joined a pool must re-bind to the pool's topology
+        self._topo_pool = None
+        self._topo_obj: _Topology | None = None
         self._slots: list[_DeviceSlot] | None = None
         self._host_slot = _DeviceSlot(_DeviceState("host", None),
                                       self.pipeline_depth)
         self._last_error = ""
         # per-kernel-kind achieved-GB/s EWMA backing the roofline gauges
         self._kernel_gbps: dict[str, float] = {}
+
+    @property
+    def _topo(self) -> _Topology:
+        pool = reactor.pool_for(self._loop)
+        if self._topo_obj is None or pool is not self._topo_pool:
+            self._topo_pool = pool
+            self._topo_obj = pool.shared("offload_topology", _Topology) \
+                if pool is not None else _Topology()
+            # slots reference the previous topology's device states:
+            # rebuild them onto the new one at next dispatch
+            self._slots = None
+        return self._topo_obj
 
     # -- config --------------------------------------------------------------
 
@@ -454,7 +541,7 @@ class OffloadService:
         return self._throttle.max
 
     def apply_setting(self, name: str, value: Any) -> None:
-        """Apply one ec_offload_* option (the reference's config names)."""
+        """Apply one ec_offload_* option (config-observer hot path)."""
         if name == "ec_offload_enabled":
             self.enabled = bool(value)
         elif name == "ec_offload_max_batch_bytes":
@@ -463,12 +550,9 @@ class OffloadService:
             self.linger_ms = float(value)
         elif name == "ec_offload_max_queue_bytes":
             self._throttle.reset_max(int(value))
-            # the waiter event is loop-bound: rotate it on the loop
-            try:
-                on_loop = asyncio.get_running_loop() is self._loop
-            except RuntimeError:
-                on_loop = False
-            if on_loop:
+            # observers can fire from an admin-socket thread: the waiter
+            # event is loop-bound, so hop onto the loop to rotate it
+            if self._on_loop():
                 self._wake_waiters()
             elif not self._loop.is_closed():
                 self._loop.call_soon_threadsafe(self._wake_waiters)
@@ -481,7 +565,8 @@ class OffloadService:
         elif name == "ec_offload_device_count":
             self.device_count = int(value)
             # in-flight batches keep their slot refs; new flushes see
-            # the rebuilt topology
+            # the rebuilt topology (a shared reset: the observer applies
+            # the change to every shard's service)
             self._slots = None
             self._topo.reset()
         elif name == "ec_offload_device_shard_bytes":
@@ -496,12 +581,15 @@ class OffloadService:
     def _topology(self) -> list[_DeviceSlot]:
         """The device slots (built on first use): one per device of the
         service's list, capped by device_count, plus the mesh over them
-        for stripe-sharded oversized batches."""
+        for stripe-sharded oversized batches. Device states and the
+        mesh are the (possibly pool-shared) topology's; the slots are
+        this loop's own."""
+        topo = self._topo            # a change of pool drops _slots
         if self._slots is not None:
             return self._slots
         devs = self.devices[:self.device_count] if self.device_count > 0 \
             else self.devices
-        states = self._topo.device_states(devs)
+        states = topo.device_states(devs)
         self._slots = [_DeviceSlot(st, self.pipeline_depth)
                        for st in states]
         return self._slots
@@ -674,6 +762,20 @@ class OffloadService:
 
     # -- admission -----------------------------------------------------------
 
+    def submit_threadsafe(self, method: str, *args,
+                          **kw) -> concurrent.futures.Future:
+        """Cross-loop submission seam: build one of the public job
+        coroutines (`encode`/`decode`/`crc32c_blocks`/`repair`) and
+        hand it to the owning loop via run_coroutine_threadsafe.
+        Callers on other shards (or plain threads) get a concurrent
+        Future; awaiting shards wrap it with asyncio.wrap_future. The
+        admission queue, buckets and staging stay loop-bound — only the
+        handoff crosses threads."""
+        if self._loop.is_closed():
+            raise RuntimeError("offload service's loop is closed")
+        coro = getattr(self, method)(*args, **kw)
+        return asyncio.run_coroutine_threadsafe(coro, self._loop)
+
     async def _submit(self, key: tuple, data, dispatch: Callable,
                       fallback: Callable, uses_device: bool = True,
                       shard_dispatch: Callable | None = None) -> np.ndarray:
@@ -731,6 +833,8 @@ class OffloadService:
                 slot.probe_owner = object()
             try:
                 t0 = time.perf_counter()
+                if faultinject.should_fail_device():
+                    raise _InjectedDeviceFailure("injected device failure")
                 out = _run_on_slot(slot, dispatch, _device.host_tensor(data))
                 self._slot_success(slot)
                 self._note_device(slot.label, 1, nbytes,
@@ -790,6 +894,67 @@ class OffloadService:
         if bucket.jobs:
             self._track(self._loop.create_task(self._run_batch(bucket)))
 
+    def _on_loop(self) -> bool:
+        try:
+            return asyncio.get_running_loop() is self._loop
+        except RuntimeError:
+            return False
+
+    def _from_loop(self, fn):
+        """Run `fn` on the service's event loop and return its result:
+        admin-socket hooks call from their own thread, and _buckets is
+        only coherent on the loop (a dict mutating mid-iteration raises
+        RuntimeError under exactly the load the command inspects)."""
+        if self._on_loop():
+            return fn()
+        if self._loop.is_closed():
+            return fn()         # loop gone: nothing is mutating anymore
+
+        async def run():
+            return fn()
+        try:
+            return asyncio.run_coroutine_threadsafe(
+                run(), self._loop).result(timeout=2.0)
+        except concurrent.futures.TimeoutError:
+            # loop blocked (possibly by the very caller awaiting this
+            # admin response in-process): serve a best-effort direct
+            # snapshot, retrying the rare mid-mutation iteration
+            for _ in range(5):
+                try:
+                    return fn()
+                except RuntimeError:
+                    continue
+            return fn()
+
+    def flush(self) -> dict:
+        """Force-flush every pending bucket now (admin `ec offload
+        flush`). Thread-safe: the mutating work only ever runs ON the
+        loop — a busy loop gets a call_soon_threadsafe wake instead of
+        an off-thread mutation (popping buckets from a foreign thread
+        could strand their jobs' futures if create_task then fails)."""
+        def impl():
+            pending = {str(k): len(b.jobs)
+                       for k, b in self._buckets.items()}
+            self._flush_all()
+            return {"flushed_buckets": len(pending),
+                    "pending_ops": pending}
+        if self._on_loop():
+            return impl()
+        if self._loop.is_closed():
+            return {"flushed_buckets": 0, "pending_ops": {},
+                    "error": "event loop closed"}
+
+        async def run():
+            return impl()
+        try:
+            return asyncio.run_coroutine_threadsafe(
+                run(), self._loop).result(timeout=2.0)
+        except concurrent.futures.TimeoutError:
+            self._loop.call_soon_threadsafe(self._flush_all)
+            return {"flushed_buckets": 0, "pending_ops": {},
+                    "scheduled": True,
+                    "error": "loop busy; flush scheduled"}
+
     def _flush_all(self) -> None:
         for key in list(self._buckets):
             self._flush_bucket(key)
@@ -840,9 +1005,17 @@ class OffloadService:
     async def _run_batch(self, bucket: _Bucket) -> None:
         jobs = bucket.jobs
         token = object()         # this batch's probe-claim identity
-        slot = self._host_slot if not bucket.uses_device \
-            else (self._route(bucket.key, claimant=token)
-                  or self._host_slot)
+        try:
+            slot = self._host_slot if not bucket.uses_device \
+                else (self._route(bucket.key, claimant=token)
+                      or self._host_slot)
+        except Exception as e:
+            # no slot to run on (a device list the pool's shared
+            # topology refuses): the riders get the error, not a hang
+            for j in jobs:
+                if not j.fut.done():
+                    j.fut.set_exception(e)
+            return
         slot.inflight += 1
         staging = None
         try:
@@ -946,13 +1119,16 @@ class OffloadService:
         if topo.mesh is None:
             return False
         with topo.lock:
+            topo.note("mesh_degraded", write=False)
             if not topo.mesh_degraded:
                 return True
             if (time.monotonic() - topo.mesh_degraded_since
                     >= self.breaker_reset_s) and \
                     not topo.mesh_probe_inflight:
-                # half-open: claim the single probe batch; cleared on
+                # half-open: claim the single probe batch (one claim
+                # across shards: the lock makes it atomic); cleared on
                 # the probe's success, failure, or cancellation
+                topo.note("mesh_degraded", write=True)
                 topo.mesh_probe_inflight = True
                 return True
             return False
@@ -962,6 +1138,10 @@ class OffloadService:
                         ) -> tuple[np.ndarray, str]:
         """One staged dispatch with per-device failover and host-codec
         last resort. Returns (result, device label: slot/"mesh"/"host")."""
+        if interleave.armed():
+            # schedule explorer: let a racing batch reach the breaker/
+            # staging state between routing and dispatch
+            await interleave.yield_point("offload_dispatch")
         nbytes = int(stacked.nbytes)
         if not bucket.uses_device:
             t0 = time.perf_counter()
@@ -969,9 +1149,15 @@ class OffloadService:
             self._note_device("host", n_ops, nbytes,
                               time.perf_counter() - t0)
             return out, "host"
+        injected = slot is not self._host_slot \
+            and faultinject.should_fail_device()
+        if injected:
+            self._slot_failure(slot,
+                               _InjectedDeviceFailure("injected device "
+                                                      "failure"))
         # oversized batches fan across the whole mesh on the stripe axis
         # instead of serializing on one card
-        if (bucket.shard_dispatch is not None
+        if (not injected and bucket.shard_dispatch is not None
                 and nbytes >= self.device_shard_bytes
                 and self._mesh_allowed()):
             topo = self._topo
@@ -980,6 +1166,7 @@ class OffloadService:
                 out = await self._in_pool(bucket.shard_dispatch, stacked)
                 busy = time.perf_counter() - t0
                 with topo.lock:
+                    topo.note("mesh_degraded", write=True)
                     topo.mesh_probe_inflight = False
                     if topo.mesh_degraded:
                         topo.mesh_degraded = False
@@ -999,6 +1186,7 @@ class OffloadService:
                 raise
             except Exception as e:
                 with topo.lock:
+                    topo.note("mesh_degraded", write=True)
                     topo.mesh_probe_inflight = False
                     topo.mesh_degraded = True
                     topo.mesh_degraded_since = time.monotonic()
@@ -1011,7 +1199,7 @@ class OffloadService:
         failover_slots: list[_DeviceSlot] = []
         tried: set = set()
         try:
-            while slot is not self._host_slot:
+            while not injected and slot is not self._host_slot:
                 try:
                     t0 = time.perf_counter()
                     out = await self._device_call(slot, bucket.dispatch,
@@ -1181,7 +1369,10 @@ class OffloadService:
                 "last_error": self._last_error if degraded else ""}
 
     def status(self) -> dict:
-        """The `ec offload status` summary (call on the service's loop)."""
+        """Admin-socket `ec offload status` (loop-coherent off-thread)."""
+        return self._from_loop(self._status_impl)
+
+    def _status_impl(self) -> dict:
         s = self.stats
         slots = self._slots or []
         return {
@@ -1331,3 +1522,92 @@ def set_enabled(flag: bool) -> None:
         services = list(_instances.values())
     for svc in services:
         svc.enabled = bool(flag)
+
+
+def OFFLOAD_OPTIONS():
+    """The ec_offload_* option schema (declared per daemon Config)."""
+    from ceph_tpu_torch.utils.config import Option
+    return [
+        Option("ec_offload_enabled", "bool", _DEFAULTS["enabled"],
+               "route EC/crc dispatches through the batching offload "
+               "service (false = per-op inline dispatch)"),
+        Option("ec_offload_max_batch_bytes", "size",
+               _DEFAULTS["max_batch_bytes"],
+               "flush a batch bucket at this many bytes", minimum=4096),
+        Option("ec_offload_linger_ms", "float", _DEFAULTS["linger_ms"],
+               "max time a job waits for batch-mates before the bucket "
+               "ships anyway", minimum=0.0),
+        Option("ec_offload_max_queue_bytes", "size",
+               _DEFAULTS["max_queue_bytes"],
+               "admission-queue byte budget (backpressure past this)",
+               minimum=4096),
+        Option("ec_offload_pipeline_depth", "int",
+               _DEFAULTS["pipeline_depth"],
+               "staging pages per device (the upload of batch N+1 "
+               "overlaps the kernel of batch N); startup only",
+               minimum=1),
+        Option("ec_offload_breaker_threshold", "int",
+               _DEFAULTS["breaker_threshold"],
+               "consecutive errors on one device before removing it "
+               "from rotation", minimum=1),
+        Option("ec_offload_breaker_reset_s", "secs",
+               _DEFAULTS["breaker_reset_s"],
+               "per-device cooldown before a half-open probe batch"),
+        Option("ec_offload_crc_device", "bool", _DEFAULTS["crc_device"],
+               "run crc jobs on the device kernel (host-native when the "
+               "transfer link is the bottleneck)"),
+        Option("ec_offload_device_count", "int",
+               _DEFAULTS["device_count"],
+               "dispatch targets to fan batches across (0 = every "
+               "device of the service's list); rebuilds the mesh on "
+               "change", minimum=0),
+        Option("ec_offload_device_shard_bytes", "size",
+               _DEFAULTS["device_shard_bytes"],
+               "batches at or past this stripe-shard across the whole "
+               "device mesh instead of one card", minimum=4096),
+        Option("ec_offload_device_spill_threshold", "int",
+               _DEFAULTS["device_spill_threshold"],
+               "inflight-batch lead over the least-busy device at "
+               "which an affine bucket spills off its preferred card",
+               minimum=1),
+        Option("ec_offload_device_peak_gbps", "float",
+               _DEFAULTS["device_peak_gbps"],
+               "device memory-bandwidth peak in GB/s for the roofline "
+               "gauges (kernel_*_roofline_pct); 0 leaves them at zero "
+               "and only the absolute GB/s gauges move", minimum=0.0),
+    ]
+
+
+def register_config(config) -> None:
+    """Declare the ec_offload_* options on `config` (idempotent) and
+    hot-apply changes to the module defaults and every live service —
+    `config set ec_offload_linger_ms 5` over an admin socket retunes
+    the batcher live."""
+    from ceph_tpu_torch.utils.config import ConfigError
+    names = []
+    for opt in OFFLOAD_OPTIONS():
+        names.append(opt.name)
+        try:
+            config.declare(opt)
+        except ConfigError:
+            pass                    # another daemon already declared it
+
+    def _on_change(name: str, value) -> None:
+        key = name[len("ec_offload_"):]
+        if key in _DEFAULTS:
+            _DEFAULTS[key] = value
+        # snapshot under the lock: a shard loop's first get_service()
+        # can insert mid-iteration (observers fire on arbitrary threads)
+        with _instances_lock:
+            services = list(_instances.values())
+        for svc in services:
+            svc.apply_setting(name, value)
+
+    config.add_observer(tuple(names), _on_change)
+    # apply only values this Config OVERRIDES: re-applying plain
+    # defaults would let a later daemon boot silently revert knobs an
+    # operator tuned at run time on another daemon's socket
+    diff = config.diff()
+    for name in names:
+        if name in diff:
+            _on_change(name, config.get(name))

@@ -23,8 +23,8 @@ carrying the stripes to the card. The `*_async` variants route the
 device dispatch through the offload service (ceph_tpu_torch.offload),
 where it coalesces with concurrent callers. Tracer spans (`ec_encode`,
 `ec_decode`, `ec_recover`) and the copy ledger's `frame_to_buffer` and
-`reply_assemble` stages are the reference's; its sanitizer view guards
-belong to the messenger and come with it.
+`reply_assemble` stages are the reference's, and so are the checked
+unwraps of sanitizer-guarded views at the three numpy boundaries.
 """
 from __future__ import annotations
 
@@ -34,7 +34,7 @@ from typing import Iterable, Mapping
 import numpy as np
 
 from ceph_tpu_torch.ec.interface import ErasureCodeError
-from ceph_tpu_torch.utils import copytrack, tracer
+from ceph_tpu_torch.utils import copytrack, sanitizer, tracer
 
 
 class StripeInfo:
@@ -117,6 +117,9 @@ class StripeInfo:
 def _encode_frame(sinfo: StripeInfo, ec_impl, data, want):
     """Shared validation/framing for encode(): returns
     (stripes (S,k,C) | None, want set, k, n_chunks, mapping, batched)."""
+    # numpy boundary: a sanitizer-guarded view unwraps HERE (with its
+    # use-after-recycle check); np.frombuffer can't take the proxy
+    data = sanitizer.unwrap(data)
     if isinstance(data, (bytes, bytearray, memoryview)):
         # np.frombuffer windows the message bytes — no copy, read-only:
         # the plugin copies them into its staging memory
@@ -305,7 +308,7 @@ def _decode_concat_frame(sinfo: StripeInfo, ec_impl,
     exactly one is non-None; `work` is (stacked, avail_ids, missing,
     want, k, n_stripes, mapping)."""
     k = ec_impl.get_data_chunk_count()
-    arrays = {i: np.frombuffer(b, dtype=np.uint8)
+    arrays = {i: np.frombuffer(sanitizer.unwrap(b), dtype=np.uint8)
               for i, b in to_decode.items()}
     if not arrays:
         raise ErasureCodeError("no chunks to decode")
@@ -424,7 +427,7 @@ def _decode_shards_frame(sinfo: StripeInfo, ec_impl,
     sliced by that plan — contiguous chunk thirds are not the plan's
     strided sub-chunk runs, and the mis-slice would silently decode
     garbage (and inflate the output q-fold)."""
-    arrays = {i: np.frombuffer(b, dtype=np.uint8)
+    arrays = {i: np.frombuffer(sanitizer.unwrap(b), dtype=np.uint8)
               for i, b in to_decode.items()}
     if not arrays:
         raise ErasureCodeError("no chunks to decode")

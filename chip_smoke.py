@@ -64,7 +64,19 @@ comes out against the host codec:
               the profiler;
   phase 11    the port's bench_driver: --stage device on the card (every
               key measured) and --stage mesh_scaling over 1, 2 and 4
-              slots of it (bit-identical).
+              slots of it (bit-identical);
+  phase 12    the thread-sharded reactor: phase 7's default pass on each
+              of 4 shards' services over one shared topology (GB/s
+              beside one shard alone, the card's idle share, loop lag
+              under loopprof, the pinned pages held), one armed device
+              failure over 4 shards x 4 slots of the card (one breaker
+              trip pool-wide), a cross-shard submit_threadsafe (K2 and
+              K1), the pass again with the sanitizer armed (no lockset
+              conflict, view-guard trip, lockdep inversion or foreign
+              call_soon), one shard's writes under the interleave
+              explorer, and `ec offload status` / `flush` through an
+              admin socket. It runs last: a multi-shard pool holds the
+              GIL switch interval at 0.5 ms.
 
 Phase 1 also holds K1 at the plugins' shapes: (1,k,N) -> r for k 3, 6,
 8, 12, r 1-4 and N clay's plane batches and ragged 1 MiB.
@@ -100,6 +112,10 @@ CRC_BATCH = 1 << 16             # blocks per crc launch
 K2_BLOCKS = (1, 7, 256, 1024, 1 << 15, 1 << 16)    # K2 held to plain at
 K2_TIMED = (256, 1024, 1 << 15, 1 << 16)           # and timed at (4 KiB)
 SERVICE_WRITES = 16             # concurrent one-stripe writes per pass
+SHARDS = 4                      # phase 12: reactor shards (front ends)
+SHARD_PASSES = 3                # timed passes each, 4 shards and 1 shard
+FAULT_WRITES = 4                # phase 12b/e: one-stripe encodes a shard
+XSHARD_BLOCKS = 1024            # phase 12c: 4 KiB blocks of the crc job
 ERASURES = ((0, 1, 2), (4, 8, 10), (7, 9, 10))
 MESH_ERASURES = ((0, 1, 2), (1, K, K + 2))     # __graft_entry__.py's
 CORPUS = os.path.join(os.path.dirname(os.path.abspath(__file__)),
@@ -451,94 +467,122 @@ def phase_mesh(torch, np, dev, rand_bytes) -> list[str]:
     return [label for label, _, _ in layouts]
 
 
+class ServicePass:
+    """Phase 7's default pass: SERVICE_WRITES one-stripe writes, made
+    from a seed, with their synchronous results. `run` drives one pass
+    through a service on the running loop: every write's encode_async,
+    every sync-path shard's calculate_async, and decode_concat_async /
+    decode_shards_async for the patterns of ERASURES, all concurrent;
+    `check` holds what it returned byte-equal to the synchronous path."""
+
+    def __init__(self, np, code):
+        from ceph_tpu_torch.osd import ec_util
+        from ceph_tpu_torch.utils.checksummer import Checksummer
+        self.code = code
+        self.sinfo = sinfo = ec_util.StripeInfo(K, K * CHUNK)
+        rng = np.random.default_rng(11)
+        self.writes = [rng.integers(0, 256, sinfo.stripe_width,
+                                    dtype=np.uint8).tobytes()
+                       for _ in range(SERVICE_WRITES)]
+        self.sync = [{i: bytes(b)
+                      for i, b in ec_util.encode(sinfo, code, w).items()}
+                     for w in self.writes]
+        host_cs = Checksummer("crc32c", CSUM_BLOCK, use_device=False)
+        self.want_csums = [host_cs.calculate(sh[i]) for sh in self.sync
+                           for i in range(K + M)]
+        self.lost = [ERASURES[w % len(ERASURES)]
+                     for w in range(SERVICE_WRITES)]
+        self.haves = [{i: b for i, b in sh.items() if i not in p}
+                      for sh, p in zip(self.sync, self.lost)]
+        self.nbytes = (len(self.writes) * sinfo.stripe_width   # encode in
+                       + sum(len(b) for sh in self.sync
+                             for b in sh.values())            # csums
+                       + 2 * K * CHUNK * len(self.haves))     # decodes in
+        # bytes a pass sends to its slots and brings back: every encode,
+        # decode_concat and decode_shards job is k chunks up; parity, the
+        # lost data chunks and the lost chunks come down (the crc jobs
+        # stay on the host unless crc_device is on)
+        self.device_up = 3 * len(self.writes) * K * CHUNK
+        self.device_down = CHUNK * sum(M + sum(1 for i in p if i < K)
+                                       + len(p) for p in self.lost)
+
+    async def run(self, svc) -> tuple:
+        import asyncio
+
+        from ceph_tpu_torch.osd import ec_util
+        from ceph_tpu_torch.utils.checksummer import Checksummer
+        sinfo, code = self.sinfo, self.code
+        cs = Checksummer("crc32c", CSUM_BLOCK)
+        t0 = time.perf_counter()
+        results = await asyncio.gather(
+            asyncio.gather(*[ec_util.encode_async(sinfo, code, w, service=svc)
+                             for w in self.writes]),
+            asyncio.gather(*[cs.calculate_async(sh[i], service=svc)
+                             for sh in self.sync for i in range(K + M)]),
+            asyncio.gather(*[ec_util.decode_concat_async(
+                sinfo, code, h, service=svc) for h in self.haves]),
+            asyncio.gather(*[ec_util.decode_shards_async(
+                sinfo, code, h, p, service=svc)
+                for h, p in zip(self.haves, self.lost)]))
+        wall = time.perf_counter() - t0
+        await svc.drain()
+        return results, wall
+
+    def check(self, np, results) -> None:
+        enc, csums, concat, rebuilt = results
+        for w, (got, want) in enumerate(zip(enc, self.sync)):
+            if {i: bytes(b) for i, b in got.items()} != want:
+                raise AssertionError(f"service encode of write {w} differs")
+        for j, (got, want) in enumerate(zip(csums, self.want_csums)):
+            if not np.array_equal(got, want):
+                raise AssertionError(f"service checksums of shard {j} "
+                                     f"differ")
+        if concat != self.writes:
+            raise AssertionError("service degraded reads differ")
+        for sh, p, got in zip(self.sync, self.lost, rebuilt):
+            if any(got[i] != sh[i] for i in p):
+                raise AssertionError(f"service rebuild {p} differs")
+
+
 def phase_service(torch, np, devices, window=None, **settings) -> dict:
-    """One pass of the offload service over `devices`: every write's
-    encode_async, every sync-path shard's calculate_async, and
-    decode_concat_async / decode_shards_async for the patterns of
-    ERASURES, all concurrent, held byte-equal to the synchronous path.
-    `window`, a context manager, is entered around the pass alone.
-    Returns the service's numbers for the pass."""
+    """One ServicePass through the service over `devices`, with
+    `settings` set on it. `window`, a context manager, is entered around
+    the pass alone. Returns the service's numbers for the pass."""
     import asyncio
 
     from ceph_tpu_torch import offload
     from ceph_tpu_torch.ec.registry import factory
-    from ceph_tpu_torch.osd import ec_util
-    from ceph_tpu_torch.utils.checksummer import Checksummer
     code = factory("cuda", {"k": str(K), "m": str(M),
                             "device": str(devices[0])})
-    sinfo = ec_util.StripeInfo(K, K * CHUNK)
-    rng = np.random.default_rng(11)
-    writes = [rng.integers(0, 256, sinfo.stripe_width,
-                           dtype=np.uint8).tobytes()
-              for _ in range(SERVICE_WRITES)]
-    sync = [{i: bytes(b) for i, b in ec_util.encode(sinfo, code, w).items()}
-            for w in writes]
-    host_cs = Checksummer("crc32c", CSUM_BLOCK, use_device=False)
-    want_csums = [host_cs.calculate(sh[i]) for sh in sync
-                  for i in range(K + M)]
-    lost = [ERASURES[w % len(ERASURES)] for w in range(SERVICE_WRITES)]
-    haves = [{i: b for i, b in sh.items() if i not in p}
-             for sh, p in zip(sync, lost)]
-    nbytes = (len(writes) * sinfo.stripe_width               # encode in
-              + sum(len(b) for sh in sync for b in sh.values())  # csums
-              + 2 * sum(K * CHUNK for _ in haves))           # decodes in
+    sp = ServicePass(np, code)
 
     async def drive():
         svc = offload.get_service(devices)
         for name, value in settings.items():
             setattr(svc, name, value)
-        cs = Checksummer("crc32c", CSUM_BLOCK)
-        t0 = time.perf_counter()
-        results = await asyncio.gather(
-            asyncio.gather(*[ec_util.encode_async(sinfo, code, w, service=svc)
-                             for w in writes]),
-            asyncio.gather(*[cs.calculate_async(sh[i], service=svc)
-                             for sh in sync for i in range(K + M)]),
-            asyncio.gather(*[ec_util.decode_concat_async(
-                sinfo, code, h, service=svc) for h in haves]),
-            asyncio.gather(*[ec_util.decode_shards_async(
-                sinfo, code, h, p, service=svc)
-                for h, p in zip(haves, lost)]))
-        wall = time.perf_counter() - t0
-        await svc.drain()
+        results, wall = await sp.run(svc)
         return results, wall, dict(svc.stats), svc.device_snapshot()
 
     from ceph_tpu_torch.ops import crc32c, rs_codec
     # the references above launched K1 themselves: count from here
     rs_codec.launches = crc32c.launches = rs_codec.encode_local_launches = 0
     with window if window is not None else contextlib.nullcontext():
-        (enc, csums, concat, rebuilt), wall, stats, devs = \
-            asyncio.run(drive())
+        results, wall, stats, devs = asyncio.run(drive())
     launches = {"gf_bitmatrix": rs_codec.launches,
                 "crc32c_blocks": crc32c.launches,
                 "gf_bitmatrix_csum": rs_codec.encode_local_launches}
-    for w, (got, want) in enumerate(zip(enc, sync)):
-        if {i: bytes(b) for i, b in got.items()} != want:
-            raise AssertionError(f"service encode of write {w} differs")
-    for j, (got, want) in enumerate(zip(csums, want_csums)):
-        if not np.array_equal(got, want):
-            raise AssertionError(f"service checksums of shard {j} differ")
-    if concat != writes:
-        raise AssertionError("service degraded reads differ")
-    for sh, p, got in zip(sync, lost, rebuilt):
-        if any(got[i] != sh[i] for i in p):
-            raise AssertionError(f"service rebuild {p} differs")
+    sp.check(np, results)
     if stats["fallback_ops"] or stats["breaker_trips"]:
         raise AssertionError(f"service fell back to the host: {stats}")
     if "cuda:0" not in devs and devices[0].type == "cuda":
         raise AssertionError(f"no batch ran on cuda:0: {sorted(devs)}")
     if stats["coalesced_ops"] <= 0:
         raise AssertionError(f"nothing coalesced: {stats}")
-    # bytes a pass sends to its slots and brings back: every encode,
-    # decode_concat and decode_shards job is k chunks up; parity, the
-    # lost data chunks and the lost chunks come down (the crc jobs stay
-    # on the host unless crc_device is on)
-    up = 3 * len(writes) * K * CHUNK
-    down = CHUNK * sum(M + sum(1 for i in p if i < K) + len(p) for p in lost)
-    return {"wall_s": wall, "bytes": nbytes, "stats": stats,
-            "launches": launches, "device_up": up, "device_down": down,
+    return {"wall_s": wall, "bytes": sp.nbytes, "stats": stats,
+            "launches": launches, "device_up": sp.device_up,
+            "device_down": sp.device_down,
             "ms_per_batch": wall / stats["batches"] * 1e3,
-            "gb_per_s": nbytes / wall / 1e9,
+            "gb_per_s": sp.nbytes / wall / 1e9,
             "devices": {d: {"batches": v["batches"], "busy_s": v["busy_s"]}
                         for d, v in devs.items()}}
 
@@ -797,6 +841,405 @@ def plugins_idle(windows: dict) -> dict:
             f"{w.busy_s * 1e3:.2f} ms of {w.window_s * 1e3:.1f} ms, idle "
             f"share {share(w.idle_share)}")
     return out
+
+
+def _loop_lag(stop, period_s: float = 0.002):
+    """On the running loop until `stop` (a threading.Event) is set: how
+    late each `period_s` sleep wakes (the loop's lag) and the deepest
+    executor queue seen (loopprof's reading) at each wake."""
+    import asyncio
+
+    from ceph_tpu_torch.utils import loopprof
+
+    async def tick():
+        lags, depth = [], 0
+        while not stop.is_set():
+            t0 = time.perf_counter()
+            await asyncio.sleep(period_s)
+            lags.append(time.perf_counter() - t0 - period_s)
+            depth = max(depth, loopprof._executor_depth())
+        return {"lag_ms": quantiles([x * 1e3 for x in lags])
+                if lags else None,
+                "lag_max_ms": max(lags) * 1e3 if lags else None,
+                "executor_depth_max": depth}
+    return tick()
+
+
+async def _reactor_pool(torch, np, dev, sp, window_cls) -> dict:
+    """Phases 12a and 12c-12f on one ShardPool of SHARDS front ends,
+    each shard's service over [dev]."""
+    import asyncio
+    import shutil
+    import tempfile
+
+    from ceph_tpu_torch import offload
+    from ceph_tpu_torch.native import ec_native
+    from ceph_tpu_torch.offload import service as svc_mod
+    from ceph_tpu_torch.ops import crc32c, rs_codec
+    from ceph_tpu_torch.osd import ec_util
+    from ceph_tpu_torch.qa import interleave
+    from ceph_tpu_torch.utils import loopprof, reactor, sanitizer
+    from ceph_tpu_torch.utils.admin_socket import AdminSocket, admin_command
+    out: dict = {}
+    label = "cuda:0" if dev.type == "cuda" else "cpu:0"
+    pool = reactor.ShardPool(SHARDS)
+    try:
+        out["switch_interval_s"] = sys.getswitchinterval()
+        if out["switch_interval_s"] != reactor.ShardPool.SWITCH_INTERVAL_S:
+            raise AssertionError(f"switch interval "
+                                 f"{out['switch_interval_s']} in the pool")
+
+        async def shard_pass():
+            return await sp.run(offload.get_service([dev]))
+
+        async def pool_pass() -> float:
+            t0 = time.perf_counter()
+            done = await asyncio.gather(*[pool.run_on(i, shard_pass())
+                                          for i in range(SHARDS)])
+            wall = time.perf_counter() - t0
+            for results, _ in done:
+                sp.check(np, results)
+            return wall
+
+        async def one_pass() -> float:
+            results, wall = await shard_pass()
+            sp.check(np, results)
+            return wall
+
+        # -- 12a: four front ends over one card ------------------------------
+        k1_before = rs_codec.launches
+        await pool_pass()                  # warm: every shard's pages
+        pool_walls, one_walls = [], []
+        for _ in range(SHARD_PASSES):
+            one_walls.append(await one_pass())
+            pool_walls.append(await pool_pass())
+        services = await pool.run_on_each(
+            lambda: offload.get_service([dev]))
+        if len({id(s) for s in services}) != SHARDS:
+            raise AssertionError("the shards share a service")
+        if len({id(s._topo) for s in services}) != 1:
+            raise AssertionError("the shards' services do not share one "
+                                 "topology")
+        fallback = sum(s.stats["fallback_ops"] for s in services)
+        if fallback or rs_codec.launches <= k1_before:
+            raise AssertionError(f"pool passes: fallback_ops {fallback}, "
+                                 f"K1 launches "
+                                 f"{rs_codec.launches - k1_before}")
+        pages = [t for s in services for sl in s._slots for t in sl.staging]
+        with window_cls(torch) as win:
+            profiled_wall = await pool_pass()
+        stop = threading.Event()
+        loopprof.reset()
+        await pool.run_on_each(loopprof.install)
+        try:
+            lag_tasks = [asyncio.ensure_future(
+                pool.run_on(i, _loop_lag(stop))) for i in range(SHARDS)]
+            await asyncio.sleep(0.01)
+            prof_wall = await pool_pass()
+            stop.set()
+            lags = await asyncio.gather(*lag_tasks)
+            busy = loopprof.shard_stats()
+        finally:
+            stop.set()
+            await pool.run_on_each(loopprof.uninstall)
+        if loopprof.installed_loops():
+            raise AssertionError("loopprof still armed after uninstall")
+        pool_gbps = [SHARDS * sp.nbytes / w / 1e9 for w in pool_walls]
+        one_gbps = [sp.nbytes / w / 1e9 for w in one_walls]
+        out["a"] = {
+            "pool_walls_s": pool_walls, "one_walls_s": one_walls,
+            "pool_gb_per_s": pool_gbps, "one_gb_per_s": one_gbps,
+            "pool_gb_per_s_median": statistics.median(pool_gbps),
+            "one_gb_per_s_median": statistics.median(one_gbps),
+            "pass_bytes": sp.nbytes,
+            "staging_pages": len(pages),
+            "staging_bytes": sum(t.numel() for t in pages),
+            "profiled_wall_s": profiled_wall,
+            "device_ops": getattr(win, "device_ops", None),
+            "busy_s": getattr(win, "busy_s", None),
+            "idle_share": win.idle_share,
+            "loopprof_wall_s": prof_wall,
+            "loop_busy": busy,
+            "loop_lag": {f"shard{i}": lag for i, lag in enumerate(lags)},
+            "fallback_ops": fallback,
+            "batches": sum(s.stats["batches"] for s in services)}
+
+        # -- 12c: a cross-shard submission -----------------------------------
+        svc1 = services[1]
+
+        async def set_crc_device(flag):
+            svc1.crc_device = flag
+        rng = np.random.default_rng(12)
+        blocks = rng.integers(0, 256, (XSHARD_BLOCKS, CSUM_BLOCK),
+                              dtype=np.uint8)
+        stripes = rng.integers(0, 256, (BATCH, K, CHUNK), dtype=np.uint8)
+        k2_before = crc32c.launches
+        await pool.run_on(1, set_crc_device(True))
+        try:
+            crcs = await asyncio.wrap_future(svc1.submit_threadsafe(
+                "crc32c_blocks", blocks, CSUM_BLOCK))
+            parity = await asyncio.wrap_future(svc1.submit_threadsafe(
+                "encode", sp.code, stripes))
+        finally:
+            await pool.run_on(1, set_crc_device(False))
+        if not np.array_equal(
+                crcs, ec_native.crc32c_blocks(blocks.reshape(-1),
+                                              CSUM_BLOCK)):
+            raise AssertionError("cross-shard crc32c_blocks differs from "
+                                 "the host's")
+        if not np.array_equal(parity, svc_mod._host_apply(
+                sp.code.coding_matrix, stripes)):
+            raise AssertionError("cross-shard encode differs from the "
+                                 "host's")
+        if crc32c.launches <= k2_before:
+            raise AssertionError("the cross-shard crc job never launched "
+                                 "K2")
+        out["c"] = {"crc_blocks": XSHARD_BLOCKS,
+                    "encode_shape": list(stripes.shape),
+                    "k2_launches": crc32c.launches - k2_before}
+
+        # -- 12d: the sanitizer armed over 12a's pass ------------------------
+        trips = sanitizer.perf().dump()["san_view_guard_trips"]
+        sanitizer.take_foreign_call_soon()
+        sanitizer.set_lockdep(True)
+        await pool.run_on_each(lambda: sanitizer.install(view_guards=True))
+        try:
+            sanitizer.clear_lockset_conflicts()
+            san_wall = await pool_pass()
+            conflicts = sanitizer.lockset_conflicts()
+            inversions = sanitizer.lockdep_inversions()
+        finally:
+            await pool.run_on_each(sanitizer.uninstall)
+            sanitizer.set_lockdep(False)
+        foreign = sanitizer.take_foreign_call_soon()
+        new_trips = sanitizer.perf().dump()["san_view_guard_trips"] - trips
+        if conflicts or inversions or foreign or new_trips:
+            raise AssertionError(
+                f"sanitizer over the pool pass: lockset conflicts "
+                f"{conflicts}, lockdep inversions {inversions}, foreign "
+                f"call_soon {foreign}, view-guard trips {new_trips}")
+        out["d"] = {"wall_s": san_wall,
+                    "gb_per_s": SHARDS * sp.nbytes / san_wall / 1e9,
+                    "lockset_conflicts": 0, "lockdep_inversions": 0,
+                    "view_guard_trips": 0, "foreign_call_soon": 0}
+
+        # -- 12e: one shard's writes under the interleave explorer -----------
+        async def explored():
+            svc = offload.get_service([dev])
+            async with interleave.explore(seed=7) as ex:
+                outs = await asyncio.gather(*[
+                    ec_util.encode_async(sp.sinfo, sp.code, w, service=svc)
+                    for w in sp.writes[:FAULT_WRITES]])
+                await svc.drain()
+            # the explorer's per-site decision count
+            return outs, ex.digest(), ex._counts.get("offload_dispatch", 0)
+        outs, digest, at_dispatch = await pool.run_on(1, explored())
+        for w, got in enumerate(outs):
+            if {i: bytes(b) for i, b in got.items()} != sp.sync[w]:
+                raise AssertionError(f"explored write {w} differs")
+        if at_dispatch < 1:
+            raise AssertionError("the explorer made no decision at "
+                                 "offload_dispatch")
+        out["e"] = {"digest": digest, "offload_dispatch_decisions":
+                    at_dispatch}
+
+        # -- 12f: the admin socket -------------------------------------------
+        tmp = tempfile.mkdtemp(prefix="asok")
+        path = os.path.join(tmp, "osd.asok")
+        asok = AdminSocket(path)
+        asok.register_command("ec offload status",
+                              lambda req: svc1.status(),
+                              "offload service: queue/batch/fallback "
+                              "stats + settings")
+        asok.register_command("ec offload flush", lambda req: svc1.flush(),
+                              "force-flush every pending offload batch "
+                              "bucket")
+        asok.start()
+        try:
+            running = asyncio.run_coroutine_threadsafe(shard_pass(),
+                                                       pool.loop(1))
+            # from the main thread, while shard 1 runs its pass
+            status = admin_command(path, "ec offload status")
+            flushed = admin_command(path, "ec offload flush")
+            perf = admin_command(path, "perf dump")
+            crashes = admin_command(path, "crash ls")
+            results, _ = await asyncio.wrap_future(running)
+            sp.check(np, results)
+        finally:
+            asok.stop()
+            shutil.rmtree(tmp, ignore_errors=True)
+        row = status.get("result", {}).get("devices", {}).get(label, {})
+        if "error" in status or row.get("batches", 0) <= 0 or \
+                status["result"]["last_error"]:
+            raise AssertionError(f"ec offload status: {status}")
+        if "flushed_buckets" not in flushed.get("result", {}):
+            raise AssertionError(f"ec offload flush: {flushed}")
+        if perf.get("result", {}).get("offload", {}).get("jobs", 0) <= 0:
+            raise AssertionError("perf dump holds no offload counters")
+        if crashes.get("result") != []:
+            raise AssertionError(f"crash ls: {crashes}")
+        out["f"] = {"status_batches": row["batches"],
+                    "flushed_buckets": flushed["result"]["flushed_buckets"]}
+    finally:
+        await pool.shutdown()
+    return out
+
+
+async def _reactor_fault(np, dev, sp) -> dict:
+    """Phase 12b: SHARDS front ends, each over [dev] * 4 (four slots on
+    one card), one armed device failure."""
+    import asyncio
+
+    from ceph_tpu_torch import offload
+    from ceph_tpu_torch.osd import ec_util
+    from ceph_tpu_torch.qa import faultinject
+    from ceph_tpu_torch.utils import flight, reactor
+    from ceph_tpu_torch.utils.config import Config
+    devices = [dev] * 4
+    pool = reactor.ShardPool(SHARDS)
+    cfg = Config()
+    offload.register_config(cfg)
+    try:
+        services = await pool.run_on_each(
+            lambda: offload.get_service(devices))
+        # through the observer into every live service
+        cfg.set("ec_offload_breaker_reset_s", 0.5)
+        cfg.set("ec_offload_linger_ms", 1)
+        if any(s.breaker_reset_s != 0.5 or s.linger_ms != 1.0
+               for s in services):
+            raise AssertionError("config set did not reach every service")
+
+        async def submit_many(n):
+            svc = offload.get_service(devices)
+            outs = await asyncio.gather(*[
+                ec_util.encode_async(sp.sinfo, sp.code, w, service=svc)
+                for w in sp.writes[:n]])
+            return [{i: bytes(b) for i, b in o.items()} == sp.sync[w]
+                    for w, o in enumerate(outs)]
+
+        async def round_(n):
+            oks = await asyncio.gather(*[pool.run_on(i, submit_many(n))
+                                         for i in range(SHARDS)])
+            if not all(ok for shard in oks for ok in shard):
+                raise AssertionError("an encode differs from the "
+                                     "synchronous path")
+
+        def totals():
+            return (sum(s.stats["fallback_ops"] for s in services),
+                    sum(s.stats["breaker_trips"] for s in services))
+
+        await round_(1)                    # warm every shard
+        if len({id(s._topo) for s in services}) != 1:
+            raise AssertionError("the shards do not share one topology")
+        fb0, tr0 = totals()
+        flight.reset()
+        faultinject.reset(seed=0)
+        faultinject.set_enabled(True)
+        faultinject.arm_device_failures(1)
+        try:
+            await round_(FAULT_WRITES)
+        finally:
+            faultinject.set_enabled(False)
+        fb1, tr1 = totals()
+        outs = {s.health_metrics()["devices_out"] for s in services}
+        events = flight.dump()["events"]
+        injected = [e for e in events if e["type"] == "fault_injected"]
+        tripped = [e for e in events if e["type"] == "breaker_trip"]
+        if tr1 - tr0 != 1 or not 1 <= fb1 - fb0 <= FAULT_WRITES:
+            raise AssertionError(f"armed failure: {tr1 - tr0} breaker "
+                                 f"trips, {fb1 - fb0} fallback ops")
+        if len(outs) != 1 or not outs <= {0, 1} or \
+                any(s.degraded for s in services):
+            raise AssertionError(f"devices_out by shard {outs}")
+        if len(injected) != 1 or injected[0]["entity"] != \
+                "device_oneshot" or len(tripped) != 1:
+            raise AssertionError(f"flight ring: {injected} {tripped}")
+        await asyncio.sleep(0.6)           # past breaker_reset_s
+        await round_(1)
+        fb2, _ = totals()
+        after = {s.health_metrics()["devices_out"] for s in services}
+        if fb2 != fb1 or after != {0}:
+            raise AssertionError(f"clean round: {fb2 - fb1} new fallback "
+                                 f"ops, devices_out {after}")
+        return {"breaker_trips": tr1 - tr0, "fallback_ops": fb1 - fb0,
+                "devices_out_after_fault": sorted(outs),
+                "tripped": tripped[0]["entity"],
+                "devices_out_after_reset": 0}
+    finally:
+        for name in ("ec_offload_breaker_reset_s", "ec_offload_linger_ms"):
+            cfg.rm(name)                   # back to the defaults
+        faultinject.reset(seed=0)
+        await pool.shutdown()
+
+
+def phase_reactor(torch, np, dev, window_cls=None) -> dict:
+    """Phase 12: the sharded service on the card. `window_cls`, default
+    DeviceWindow, traces the card over one pool pass."""
+    import asyncio
+
+    from ceph_tpu_torch.ec.registry import factory
+    from ceph_tpu_torch.ops import crc32c, rs_codec
+    code = factory("cuda", {"k": str(K), "m": str(M), "device": str(dev)})
+    sp = ServicePass(np, code)
+    saved = sys.getswitchinterval()
+    # the references above launched K1 themselves: count from here
+    rs_codec.launches = crc32c.launches = rs_codec.encode_local_launches = 0
+
+    def restored() -> float:
+        if sys.getswitchinterval() != saved:
+            raise AssertionError(f"switch interval "
+                                 f"{sys.getswitchinterval()} after "
+                                 f"shutdown, {saved} before the pool")
+        return saved
+    out = asyncio.run(_reactor_pool(torch, np, dev, sp,
+                                    window_cls or DeviceWindow))
+    out["switch_interval_after_s"] = restored()
+    out["b"] = asyncio.run(_reactor_fault(np, dev, sp))
+    restored()
+    out["launches"] = {"gf_bitmatrix": rs_codec.launches,
+                       "crc32c_blocks": crc32c.launches,
+                       "gf_bitmatrix_csum": rs_codec.encode_local_launches}
+    return out
+
+
+def log_reactor(r: dict, smi: str) -> None:
+    a, b, c, d, e, f = (r[x] for x in "abcdef")
+    log(f"phase 12a: {SHARDS} shards over one card ({smi}; GIL switch "
+        f"interval {r['switch_interval_s'] * 1e3:.1f} ms in the pool, "
+        f"{r['switch_interval_after_s'] * 1e3:.1f} ms after): pool pass "
+        f"{SHARDS} x {a['pass_bytes'] / 2**20:.0f} MiB at "
+        f"{a['pool_gb_per_s_median']:.3f} GB/s median of "
+        f"{[round(x, 3) for x in a['pool_gb_per_s']]}, one shard alone "
+        f"{a['one_gb_per_s_median']:.3f} GB/s median of "
+        f"{[round(x, 3) for x in a['one_gb_per_s']]} (host clock); "
+        f"fallback_ops {a['fallback_ops']}, {a['batches']} batches")
+    log(f"phase 12a: card over one pool pass: busy "
+        f"{a['busy_s'] if a['busy_s'] is None else round(a['busy_s'], 4)} s "
+        f"of {a['profiled_wall_s']:.4f} s, idle {share(a['idle_share'])}; "
+        f"staging pages held by the {SHARDS} shards' slots: "
+        f"{a['staging_pages']} ({a['staging_bytes'] / 2**20:.0f} MiB pinned)")
+    for shard, lag in a["loop_lag"].items():
+        busy = a["loop_busy"].get(shard, {})
+        log(f"phase 12a: {shard} under loopprof: loop busy "
+            f"{busy.get('loop_busy_fraction')}, lag "
+            f"{lag['lag_ms']} ms (max {lag['lag_max_ms']} ms), executor "
+            f"queue depth max {lag['executor_depth_max']}")
+    log(f"phase 12b: one armed device failure over {SHARDS} shards x 4 "
+        f"slots: {b['breaker_trips']} breaker trip ({b['tripped']}), "
+        f"{b['fallback_ops']} fallback ops, devices_out "
+        f"{b['devices_out_after_fault']}, 0 after the reset")
+    log(f"phase 12c: shard 0 -> shard 1 submit_threadsafe: crc32c_blocks "
+        f"of {c['crc_blocks']} x 4 KiB ({c['k2_launches']} K2 launches) and "
+        f"an encode of {c['encode_shape']}, equal to the host's")
+    log(f"phase 12d: sanitizer armed (view guards, locksets, lockdep): "
+        f"pool pass {d['gb_per_s']:.3f} GB/s beside 12a's "
+        f"{a['pool_gb_per_s_median']:.3f}; 0 conflicts, inversions, trips, "
+        f"foreign call_soon")
+    log(f"phase 12e: explorer seed 7, {e['offload_dispatch_decisions']} "
+        f"decisions at offload_dispatch, digest {e['digest'][:16]}")
+    log(f"phase 12f: admin socket: ec offload status {f['status_batches']} "
+        f"batches on the card, flush {f['flushed_buckets']} buckets; launches "
+        f"on the reactor path {r['launches']}")
 
 
 def phase_bench_driver(dev, yardstick_gbps: float) -> dict:
@@ -1653,6 +2096,18 @@ def main() -> int:
     report["bench_driver"] = phase_bench_driver(
         dev, report["read_yardstick"]["gb_per_s"])
     log(f"phase 11: {time.perf_counter() - t0:.1f} s")
+
+    # -- phase 12: the sharded service on the card ---------------------------
+    # last, so that no earlier number is taken while a multi-shard pool
+    # holds the GIL switch interval at 0.5 ms
+    t0 = time.perf_counter()
+    rx = phase_reactor(torch, np, dev)
+    log_reactor(rx, smi)
+    for kname in ("gf_bitmatrix", "crc32c_blocks"):
+        if rx["launches"][kname] <= 0:
+            raise AssertionError(f"the reactor path never launched {kname}")
+    report["reactor"] = rx
+    log(f"phase 12: {time.perf_counter() - t0:.1f} s")
     plugin_launches = {kname: sum(plugins[pname]["launches"][kname]
                                   for pname, _ in PLUGINS)
                        for kname in ("gf_bitmatrix", "crc32c_blocks")}
@@ -1666,9 +2121,10 @@ def main() -> int:
          "shape": f"({BATCH},{K},{CHUNK}) -> ({BATCH},{M},{CHUNK}) uint8",
          "matched": k1_err == 0,
          "launches": svc_launches["gf_bitmatrix"]
-         + plugin_launches["gf_bitmatrix"],
+         + plugin_launches["gf_bitmatrix"] + rx["launches"]["gf_bitmatrix"],
          "launches_by_path": {"service": svc_launches["gf_bitmatrix"],
-                              "plugins": plugin_launches["gf_bitmatrix"]},
+                              "plugins": plugin_launches["gf_bitmatrix"],
+                              "reactor": rx["launches"]["gf_bitmatrix"]},
          "max_abs_err": k1_err, "tolerance": 0, "ms": k1_ms, "kernel_ms": k1_ms,
          "isolated_ms": k1_iso_ms,
          "plain_ms": k1_plain_ms, "bound_ms": k1_bound, "bound_by": k1_by,
@@ -1679,9 +2135,10 @@ def main() -> int:
          "shape": f"({CRC_BATCH},{CSUM_BLOCK}) uint8 -> ({CRC_BATCH},) crc",
          "matched": k2_err == 0,
          "launches": svc_launches["crc32c_blocks"]
-         + plugin_launches["crc32c_blocks"],
+         + plugin_launches["crc32c_blocks"] + rx["launches"]["crc32c_blocks"],
          "launches_by_path": {"service": svc_launches["crc32c_blocks"],
-                              "plugins": plugin_launches["crc32c_blocks"]},
+                              "plugins": plugin_launches["crc32c_blocks"],
+                              "reactor": rx["launches"]["crc32c_blocks"]},
          "max_abs_err": k2_err, "tolerance": 0, "ms": k2_ms, "kernel_ms": k2_ms,
          "isolated_ms": k2_iso_ms,
          "plain_ms": k2_plain_ms, "bound_ms": k2_bound, "bound_by": k2_by,
@@ -1692,7 +2149,12 @@ def main() -> int:
          "also_replaces": "ceph_tpu/parallel/mesh.py:96",
          "shape": f"({BATCH},{K},{CHUNK}) -> ({BATCH},{M},{CHUNK}) uint8 "
                   f"+ int64 checksum",
-         "matched": k3_err == 0, "launches": svc_launches["gf_bitmatrix_csum"],
+         "matched": k3_err == 0,
+         "launches": svc_launches["gf_bitmatrix_csum"]
+         + rx["launches"]["gf_bitmatrix_csum"],
+         "launches_by_path": {
+             "service": svc_launches["gf_bitmatrix_csum"],
+             "reactor": rx["launches"]["gf_bitmatrix_csum"]},
          "max_abs_err": k3_err, "tolerance": 0, "ms": k3_ms, "kernel_ms": k3_ms,
          "isolated_ms": k3_iso_ms,
          "plain_ms": k3_plain_ms, "bound_ms": k3_bound, "bound_by": k3_by,
@@ -1705,7 +2167,7 @@ def main() -> int:
             f"alone on an idle stream {kr['isolated_ms']:.4f} ms), bound {kr['bound_ms']:.4f} "
             f"ms by {kr['bound_by']} ({kr['bound_ms'] / kr['ms'] * 100:.1f}% "
             f"of it), plain {kr['plain_ms']:.3f} ms, launches on the main "
-            f"paths (phases 7 and 9) {kr['launches']}; no single PyTorch call "
+            f"paths (phases 7, 9 and 12) {kr['launches']}; no single PyTorch call "
             f"computes this function, so library_ms is null")
     report["kernels"] = kernels
     report["total_s"] = time.perf_counter() - t_start

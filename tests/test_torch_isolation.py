@@ -58,7 +58,18 @@ def test_every_module_is_listed():
                      "ceph_tpu_torch.utils.critpath",
                      "ceph_tpu_torch.utils.flight",
                      "ceph_tpu_torch.utils.copytrack",
-                     "ceph_tpu_torch.tools.bench_driver"):
+                     "ceph_tpu_torch.tools.bench_driver",
+                     "ceph_tpu_torch.utils.loophook",
+                     "ceph_tpu_torch.utils.crash",
+                     "ceph_tpu_torch.utils.sanitizer",
+                     "ceph_tpu_torch.qa",
+                     "ceph_tpu_torch.qa.faultinject",
+                     "ceph_tpu_torch.qa.interleave",
+                     "ceph_tpu_torch.utils.async_util",
+                     "ceph_tpu_torch.utils.loopprof",
+                     "ceph_tpu_torch.utils.admin_socket",
+                     "ceph_tpu_torch.utils.reactor",
+                     "ceph_tpu_torch.utils.buffer"):
         assert expected in mods
 
 
