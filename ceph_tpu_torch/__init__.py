@@ -28,7 +28,18 @@ Subpackages (same layout as ceph_tpu):
           observability modules: tracer (spans, sampling, dispatch
           profiling), critpath, flight (the event ring) and copytrack
           (the copy ledger)
-  native  ctypes loader for the repo's host C++ codec and crc32c
+  kv      the KeyValueDB contract, MemDB and the LSM store (WAL + SST
+          files byte-equal to the reference's)
+  objectstore  the ObjectStore contract and transactions, MemStore,
+          FileStore and BlueStore (block file + KV metadata, per-AU
+          crc32c on the host); a store written by either package mounts
+          in the other
+  crush   CRUSH (straw2, firstn / indep rules) and the OSDMap with its
+          pools, PGs and incrementals
+  msg     the msgr2-subset wire: frames (native or Python codec), typed
+          messages with the EC sub-ops, the asyncio Messenger
+  native  ctypes loader for the repo's host C++ codec, crc32c and msgr2
+          frame codec
   tools   ec_benchmark, bench_driver (its cpu, probe, device and
           mesh_scaling stages and the attribution waterfall), ec_tool,
           ec_non_regression (the corpus check), gen_bitmatrix_tables

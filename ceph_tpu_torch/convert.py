@@ -10,6 +10,7 @@ checks that the port derives the same parameters itself.
 """
 from __future__ import annotations
 
+import copy
 import json
 from typing import Mapping
 
@@ -93,6 +94,18 @@ def port_profile(profile: Mapping[str, str]) -> dict:
         out["scalar_mds"] = port_plugin_name(out["scalar_mds"])
     if name == "lrc" and out.get("layers"):
         out["layers"] = _port_layers(out["layers"])
+    return out
+
+
+def port_osdmap(d: Mapping) -> dict:
+    """A reference OSDMap in its wire form (`OSDMap.to_dict()`, or
+    `dumps()` parsed) with `port_profile` run over every entry of
+    `ec_profiles`, so that a pool whose profile names plugin `tpu` loads
+    in the port with plugin `cuda`. Nothing else changes."""
+    out = copy.deepcopy(dict(d))
+    if "ec_profiles" in out:
+        out["ec_profiles"] = {name: port_profile(profile) for name, profile
+                              in out["ec_profiles"].items()}
     return out
 
 

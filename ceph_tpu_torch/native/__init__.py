@@ -4,8 +4,9 @@ The port's own copy of the JAX package's loader: it builds the same
 source, `native/ec_native.cc` at the repository root, with g++ on first
 use into the port's build directory `ceph_tpu_torch/_build/` (rebuilt
 when the source is newer). `ec_native` wraps the GF(2^8) host codec and
-the crc32c helpers; both raise NativeUnavailable cleanly if no compiler
-exists.
+the crc32c helpers, `frame_native` the msgr2 frame codec (`frame_pack` /
+`frame_verify_body`); they raise NativeUnavailable cleanly if no
+compiler exists.
 """
 from __future__ import annotations
 
@@ -60,5 +61,16 @@ def load() -> ctypes.CDLL:
                                           ctypes.c_size_t, ctypes.c_uint32,
                                           u32p]
             lib.crc32c_blocks.restype = None
+            # msgr2 frame codec: pointer-sized arguments must be declared,
+            # or ctypes passes them as C ints
+            u64p = ctypes.POINTER(ctypes.c_uint64)
+            lib.frame_pack.restype = ctypes.c_uint64
+            lib.frame_pack.argtypes = [
+                ctypes.c_uint32, ctypes.c_uint32, ctypes.c_int,
+                u64p, ctypes.POINTER(ctypes.c_char_p), u64p,
+                ctypes.c_void_p]
+            lib.frame_verify_body.restype = ctypes.c_int
+            lib.frame_verify_body.argtypes = [ctypes.c_void_p, u64p,
+                                              ctypes.c_int]
             _lib = lib
     return _lib

@@ -55,9 +55,14 @@ def encode(M: np.ndarray, data: np.ndarray, out: np.ndarray) -> np.ndarray:
 
 def crc32c(data: bytes | np.ndarray, crc: int = 0xFFFFFFFF) -> int:
     """Castagnoli CRC with ceph's seed convention (crc32c(-1) default).
-    Accepts bytes-likes (strided memoryviews are materialized) and
-    arrays."""
+    Accepts bytes-likes (strided memoryviews are materialized), arrays
+    and the sanitizer's guarded views."""
     lib = native.load()
+    if type(data).__name__ == "GuardedView":
+        # sanitizer-guarded rx view: checked unwrap at the native
+        # boundary (lazy import: native must not depend on utils)
+        from ceph_tpu_torch.utils.sanitizer import unwrap
+        data = unwrap(data)
     if isinstance(data, memoryview) and not data.c_contiguous:
         data = bytes(data)
     if isinstance(data, (bytes, bytearray, memoryview)):

@@ -75,8 +75,27 @@ comes out against the host codec:
               conflict, view-guard trip, lockdep inversion or foreign
               call_soon), one shard's writes under the interleave
               explorer, and `ec offload status` / `flush` through an
-              admin socket. It runs last: a multi-shard pool holds the
-              GIL switch interval at 0.5 ms.
+              admin socket. A multi-shard pool holds the GIL switch
+              interval at 0.5 ms, so it runs after every timed phase
+              but 13;
+  phase 13    an EC object through placement, the wire and eleven
+              BlueStores (the storage pattern of the OSD's ECBackend,
+              tests/test_objectstore.py:185): an OSDMap of 11 OSDs on 5
+              hosts places a 128 MiB object (16 stripes x 8 x 1 MiB,
+              seed 42) of an EC pool (plugin cuda, k=8 m=3, indep, failure
+              domain osd); ECUtil encodes it on the card, 176
+              MOSDECSubOpWrite of 1 MiB cross two loopback Messengers
+              (the native frame codec must be active) into 11 BlueStores
+              on the LSM, one Transaction a message (13a, the card traced
+              by torch.profiler); every store remounts and reads its shard
+              back through the per-AU csum verify, equal to the card's
+              shards, beside K2 over the same AUs as a comparison line
+              (13b); a byte flipped in one data shard's block file makes
+              its read raise EIO and the object decodes on the card from
+              the other 10 shards read over the wire (13c); an
+              Incremental marks host0's OSDs out, pg_temp keeps the
+              acting set on the shards' homes, and the object decodes from
+              the 8 survivors (13d). Every byte must equal the object's.
 
 Phase 1 also holds K1 at the plugins' shapes: (1,k,N) -> r for k 3, 6,
 8, 12, r 1-4 and N clay's plane batches and ragged 1 MiB.
@@ -88,7 +107,7 @@ failure exits non-zero. Without a card it exits 2 and prints no result.
 Output: progress lines, the card's name and power limit as nvidia-smi
 reports them, a JSON line {"kernels": [...]}, and last
 {"ok": true, "device": {...}}. --json also writes every measurement to
-PATH.
+PATH (phase 13's under `store_path`).
 """
 from __future__ import annotations
 
@@ -116,6 +135,8 @@ SHARDS = 4                      # phase 12: reactor shards (front ends)
 SHARD_PASSES = 3                # timed passes each, 4 shards and 1 shard
 FAULT_WRITES = 4                # phase 12b/e: one-stripe encodes a shard
 XSHARD_BLOCKS = 1024            # phase 12c: 4 KiB blocks of the crc job
+STORE_LAYOUT = (3, 3, 2, 2, 1)  # phase 13: OSDs a host (tests/test_crush.py:83)
+STORE_SEED = 42                 # phase 13: the object's bytes
 ERASURES = ((0, 1, 2), (4, 8, 10), (7, 9, 10))
 MESH_ERASURES = ((0, 1, 2), (1, K, K + 2))     # __graft_entry__.py's
 CORPUS = os.path.join(os.path.dirname(os.path.abspath(__file__)),
@@ -1483,6 +1504,474 @@ def phase_plugin_bench(torch, np, dev, rates) -> dict:
     return out
 
 
+# -- phase 13: an EC object through placement, the wire and the stores -------
+
+def port_modules():
+    """The port's modules that phase 13 composes. Its CPU test hands
+    `StorePath` the JAX package's modules under the same names, so one
+    composition runs through either package."""
+    import types
+
+    from ceph_tpu_torch import crush, objectstore
+    from ceph_tpu_torch.ec.registry import factory
+    from ceph_tpu_torch.msg import frames, messages, messenger
+    from ceph_tpu_torch.osd import ec_util
+    return types.SimpleNamespace(
+        crush=crush, objectstore=objectstore, factory=factory,
+        frames=frames, messages=messages, messenger=messenger,
+        ec_util=ec_util)
+
+
+class StorePath:
+    """The storage pattern of the OSD's ECBackend
+    (tests/test_objectstore.py:185), composed from the modules in `mods`:
+    an OSDMap of `sum(layout)` OSDs on `len(layout)` hosts places one EC
+    object's PG (an `indep` rule, failure domain osd); each OSD has its
+    own BlueStore on the LSM under `root`. The object's shards travel as
+    MOSDECSubOpWrite / MOSDECSubOpRead between two Messengers over
+    loopback; the far side queues one Transaction a message on the
+    acting OSD's store (the shard collection, a write at the chunk's
+    offset, the `hinfo_key` xattr) and answers with the reply type.
+
+    `profile` is the pool's EC profile in the map; the code is built
+    from it with `code_extra` added (the device). Host 0 must hold m
+    OSDs: phase 13d takes it out and decodes from the k survivors."""
+
+    POOL, OBJECT = "ecpool", "ecobj"
+    TIMEOUT_S = 300.0
+
+    def __init__(self, mods, root: str, k: int, m: int, chunk: int,
+                 stripes: int, layout, profile: dict,
+                 code_extra: dict | None = None, seed: int = 42):
+        import numpy as np
+        self.mods, self.root = mods, root
+        self.k, self.m, self.chunk, self.stripes = k, m, chunk, stripes
+        crush = mods.crush
+        cm = crush.CrushMap()
+        top = cm.add_bucket(10, "default")
+        self.host_of: dict[int, int] = {}
+        osd = 0
+        for h, count in enumerate(layout):
+            host = cm.add_bucket(1, f"host{h}")
+            cm.add_item(top, host, float(count))
+            for _ in range(count):
+                cm.add_item(host, osd, 1.0, name=f"osd.{osd}")
+                self.host_of[osd] = h
+                osd += 1
+        cm.make_simple_rule(0, "ec", "default", failure_domain_type=0,
+                            mode="indep")
+        om = self.osdmap = crush.OSDMap(cm)
+        for o in range(osd):
+            om.add_osd(o, addr=f"127.0.0.1:{6800 + o}")
+            om.set_up(o, True)
+        om.ec_profiles["ec"] = dict(profile)
+        self.pool = om.create_pool(self.POOL, type="erasure", size=k + m,
+                                   min_size=k, pg_num=8, crush_rule=0,
+                                   ec_profile="ec", stripe_width=k * chunk)
+        om.inc_epoch()
+        self.pg = om.object_to_pg(self.POOL, self.OBJECT)
+        self.acting = list(om.pg_to_up_acting_osds(self.pg)[1])
+        if sorted(self.acting) != list(range(osd)) or osd != k + m:
+            raise AssertionError(f"acting set {self.acting} of {osd} OSDs "
+                                 f"for k={k} m={m}")
+        self.lost = [s for s in range(k + m)
+                     if self.host_of[self.acting[s]] == 0]
+        if len(self.lost) != m or min(self.lost) >= k:
+            raise AssertionError(f"host0 holds shards {self.lost}: phase "
+                                 f"13 needs m of them, a data shard first")
+        self.rot_shard = min(self.lost)
+        self.code = mods.factory(profile["plugin"],
+                                 {**profile, **(code_extra or {})})
+        self.sinfo = mods.ec_util.StripeInfo(k, k * chunk)
+        self.data = np.random.default_rng(seed).integers(
+            0, 256, stripes * k * chunk, dtype=np.uint8).tobytes()
+        os_ = mods.objectstore
+        self.stores = {}
+        for o in range(osd):
+            st = os_.BlueStore(os.path.join(root, f"osd.{o}"))
+            st.mkfs()
+            st.mount()
+            self.stores[o] = st
+        self._tid = 0
+        self._pending: dict = {}
+
+    # -- names ---------------------------------------------------------------
+
+    def cid(self, shard: int):
+        return self.mods.objectstore.CollectionId.make_pg(
+            self.pool.id, self.pg.ps, shard=shard)
+
+    def oid(self, shard: int):
+        return self.mods.objectstore.Ghobject(
+            pool=self.pool.id, name=self.OBJECT, shard=shard)
+
+    # -- the wire ------------------------------------------------------------
+
+    async def start(self) -> None:
+        ms, msgs = self.mods.messenger, self.mods.messages
+        os_ = self.mods.objectstore
+        path = self
+        self.store_s = 0.0
+
+        class ShardSide(ms.Dispatcher):
+            """The acting OSDs' side: one Transaction a sub-write, one
+            store read a sub-read."""
+
+            async def ms_dispatch(self, conn, msg):
+                p = msg.payload
+                if isinstance(msg, (msgs.MOSDECSubOpWrite,
+                                    msgs.MOSDECSubOpRead)):
+                    store = path.stores[p["osd"]]
+                    (pool, ps), shard = p["pgid"], p["shard"]
+                    cid = os_.CollectionId.make_pg(pool, ps, shard=shard)
+                    oid = os_.Ghobject(pool=pool, name=p["oid"], shard=shard)
+                reply = {"tid": p.get("tid"), "shard": p.get("shard"),
+                         "rc": 0}
+                if isinstance(msg, msgs.MOSDECSubOpWrite):
+                    t = os_.Transaction()
+                    if not store.collection_exists(cid):
+                        t.create_collection(cid)
+                    t.write(cid, oid, p["chunk_off"], msg.data)
+                    t.setattrs(cid, oid, {"hinfo_key": p["hinfo"].encode()})
+                    t0 = time.perf_counter()
+                    try:
+                        store.queue_transaction(t)
+                    except os_.StoreError as e:
+                        reply.update(rc=-5, error=f"{e.code} {e}")
+                    path.store_s += time.perf_counter() - t0
+                    conn.send_message(msgs.MOSDECSubOpWriteReply(reply))
+                    return True
+                if isinstance(msg, msgs.MOSDECSubOpRead):
+                    data = b""
+                    try:
+                        data = store.read(cid, oid)
+                    except os_.StoreError as e:
+                        reply.update(rc=-5 if e.code == "EIO" else -2,
+                                     error=f"{e.code} {e}")
+                    conn.send_message(msgs.MOSDECSubOpReadReply(reply, data))
+                    return True
+                return False
+
+        class PrimarySide(ms.Dispatcher):
+            async def ms_dispatch(self, conn, msg):
+                fut = path._pending.pop(msg.payload.get("tid"), None)
+                if fut is None or fut.done():
+                    return False
+                fut.set_result(msg)
+                return True
+
+        self.server = ms.Messenger("osd.shards")
+        self.server.add_dispatcher(ShardSide())
+        addr = await self.server.bind()
+        self.client = ms.Messenger("osd.primary")
+        self.client.add_dispatcher(PrimarySide())
+        self.conn = await self.client.connect(addr,
+                                              ms.Policy.lossless_peer())
+
+    async def stop(self) -> None:
+        await self.client.shutdown()
+        await self.server.shutdown()
+
+    async def _exchange(self, messages: list) -> list:
+        """Send every message on the one connection; their replies, in
+        order."""
+        import asyncio
+        loop = asyncio.get_running_loop()
+        futs = []
+        for msg in messages:
+            self._tid += 1
+            msg.payload["tid"] = self._tid
+            self._pending[self._tid] = fut = loop.create_future()
+            futs.append(fut)
+            self.conn.send_message(msg)
+        return await asyncio.wait_for(asyncio.gather(*futs), self.TIMEOUT_S)
+
+    def _read_msg(self, shard: int, osd: int):
+        return self.mods.messages.MOSDECSubOpRead({
+            "pgid": [self.pool.id, self.pg.ps], "oid": self.OBJECT,
+            "shard": shard, "osd": osd})
+
+    # -- 13a-13d -------------------------------------------------------------
+
+    async def write(self) -> dict:
+        """13a: encode the object, then every (stripe, shard) chunk as
+        one MOSDECSubOpWrite with the cumulative HashInfo of its stripe."""
+        import json
+        eu, msgs = self.mods.ec_util, self.mods.messages
+        c, n = self.chunk, self.k + self.m
+        t0 = time.perf_counter()
+        shards = eu.encode(self.sinfo, self.code, self.data)
+        t1 = time.perf_counter()
+        self.shards = {s: memoryview(shards[s]).cast("B") for s in range(n)}
+        hinfo = eu.HashInfo(n)
+        subs = []
+        for st in range(self.stripes):
+            chunks = {s: self.shards[s][st * c:(st + 1) * c]
+                      for s in range(n)}
+            hinfo.append(st * c, chunks)
+            blob = json.dumps(hinfo.to_dict())
+            for s in range(n):
+                subs.append(msgs.MOSDECSubOpWrite(
+                    {"pgid": [self.pool.id, self.pg.ps], "oid": self.OBJECT,
+                     "shard": s, "osd": self.acting[s], "chunk_off": st * c,
+                     "hinfo": blob}, chunks[s]))
+        t2 = time.perf_counter()
+        self.store_s = 0.0
+        replies = await self._exchange(subs)
+        t3 = time.perf_counter()
+        bad = [r.payload for r in replies if r.payload["rc"]]
+        if bad or len(replies) != n * self.stripes:
+            raise AssertionError(f"sub-writes failed: {bad[:3]}")
+        return {"messages": len(subs), "encode_s": t1 - t0,
+                "hinfo_s": t2 - t1, "exchange_s": t3 - t2,
+                "store_s": self.store_s,
+                "wire_s": t3 - t2 - self.store_s, "wall_s": t3 - t0,
+                "object_bytes": len(self.data),
+                "shard_bytes": n * self.stripes * c}
+
+    def au_csums(self, shard: int) -> list:
+        """The per-AU crc32c list BlueStore keeps in a shard's onode."""
+        on = self.stores[self.acting[shard]]._onode(self.cid(shard),
+                                                    self.oid(shard))
+        return [x for _, _, crcs in on["extents"] for x in crcs]
+
+    def remount(self) -> dict:
+        """13b: umount and mount every store, read each shard back
+        through BlueStore's per-AU csum verify; the bytes must be the
+        encode's."""
+        t0 = time.perf_counter()
+        for st in self.stores.values():
+            st.umount()
+        for st in self.stores.values():
+            st.mount()
+        t1 = time.perf_counter()
+        self.readback = {}
+        for s, osd in enumerate(self.acting):
+            self.readback[s] = self.stores[osd].read(self.cid(s), self.oid(s))
+        t2 = time.perf_counter()
+        for s, b in self.readback.items():
+            if b != self.shards[s]:
+                raise AssertionError(f"shard {s} read back differs")
+        self.csums = {s: self.au_csums(s) for s in self.readback}
+        self.hinfo_keys = {s: self.stores[osd].getattr(
+            self.cid(s), self.oid(s), "hinfo_key")
+            for s, osd in enumerate(self.acting)}
+        return {"remount_s": t1 - t0, "read_s": t2 - t1,
+                "aus": sum(len(v) for v in self.csums.values()),
+                "bytes": sum(len(b) for b in self.readback.values())}
+
+    async def bitrot_read(self) -> dict:
+        """13c: flip one byte in one AU of a data shard's block file; its
+        read raises EIO, the shard counts as lost, and the object decodes
+        from the other k+m-1 shards read over the wire."""
+        osd = self.acting[self.rot_shard]
+        store = self.stores[osd]
+        unit, count, _ = store._onode(self.cid(self.rot_shard),
+                                      self.oid(self.rot_shard))["extents"][0]
+        at = (unit + count // 2) * 4096 + 100
+        store.umount()
+        with open(os.path.join(self.root, f"osd.{osd}", "block"),
+                  "r+b") as f:
+            f.seek(at)
+            b = f.read(1)
+            f.seek(at)
+            f.write(bytes([b[0] ^ 0x40]))
+        store.mount()
+        t0 = time.perf_counter()
+        replies = await self._exchange(
+            [self._read_msg(s, o) for s, o in enumerate(self.acting)])
+        t1 = time.perf_counter()
+        got = {}
+        errors = {}
+        for r in replies:
+            if r.payload["rc"]:
+                errors[r.payload["shard"]] = r.payload["error"]
+            else:
+                got[r.payload["shard"]] = r.data
+        if sorted(errors) != [self.rot_shard] or \
+                not errors[self.rot_shard].startswith("EIO"):
+            raise AssertionError(f"bitrot read errors {errors}")
+        self.decoded_rot = self.mods.ec_util.decode_concat(
+            self.sinfo, self.code, got)
+        t2 = time.perf_counter()
+        if self.decoded_rot != self.data:
+            raise AssertionError("decode after bitrot differs")
+        return {"rot_shard": self.rot_shard, "osd": osd, "at": at,
+                "error": errors[self.rot_shard], "shards_read": len(got),
+                "read_s": t1 - t0, "decode_s": t2 - t1,
+                "bytes": sum(len(v) for v in got.values())}
+
+    async def host_out_read(self) -> dict:
+        """13d: an Incremental marks host0's OSDs out. CRUSH re-places
+        the PG (the up set); as an OSD would until backfill, the same
+        Incremental pins the acting set with pg_temp to the shards'
+        present homes, with holes where host0's OSDs were. The object
+        decodes from the k survivors."""
+        crush = self.mods.crush
+        om = self.osdmap
+        out = sorted(o for o, h in self.host_of.items() if h == 0)
+        holes = [crush.CRUSH_NONE if s in self.lost else o
+                 for s, o in enumerate(self.acting)]
+        om.apply_incremental(crush.Incremental(
+            epoch=om.epoch + 1, new_out=out, new_pg_temp={self.pg: holes}))
+        up, acting = (list(v) for v in om.pg_to_up_acting_osds(self.pg))
+        self.up_after, self.acting_after = up, acting
+        if acting != holes or up.count(crush.CRUSH_NONE) != self.m or \
+                set(up) & set(out):
+            raise AssertionError(f"after host0 out: up {up}, acting "
+                                 f"{acting}, expected acting {holes}")
+        survivors = [s for s, o in enumerate(acting) if o != crush.CRUSH_NONE]
+        t0 = time.perf_counter()
+        replies = await self._exchange(
+            [self._read_msg(s, acting[s]) for s in survivors])
+        t1 = time.perf_counter()
+        if any(r.payload["rc"] for r in replies):
+            raise AssertionError([r.payload for r in replies
+                                  if r.payload["rc"]])
+        got = {r.payload["shard"]: r.data for r in replies}
+        self.decoded_out = self.mods.ec_util.decode_concat(
+            self.sinfo, self.code, got)
+        t2 = time.perf_counter()
+        if self.decoded_out != self.data:
+            raise AssertionError("decode with host0 out differs")
+        return {"out": out, "acting_before": list(self.acting),
+                "up_after": up, "acting_after": acting,
+                "erasures": len(self.lost),
+                "read_s": t1 - t0, "decode_s": t2 - t1,
+                "gb_per_s": len(self.data) / (t2 - t0) / 1e9}
+
+    def close(self) -> None:
+        for st in self.stores.values():
+            st.umount()
+
+
+async def drive_store_path(path: StorePath, window=None) -> dict:
+    """13a-13d on `path`; `window`, a context manager, is entered around
+    13a alone. The native frame codec must be the one in use: a run that
+    fell back to the Python codec would measure something else (the
+    stores' crc needs the same native library)."""
+    if not path.mods.frames.native_active():
+        raise AssertionError("the native frame codec is not active")
+    await path.start()
+    try:
+        with window if window is not None else contextlib.nullcontext():
+            a = await path.write()
+        b = path.remount()
+        c = await path.bitrot_read()
+        d = await path.host_out_read()
+    finally:
+        await path.stop()
+    return {"a": a, "b": b, "c": c, "d": d}
+
+
+def phase_store_path(torch, np, dev, smi: str, rates, window_cls=None,
+                     stripes: int = BATCH) -> dict:
+    """Phase 13 on the card: StorePath at the north star's width (k=8
+    m=3, 1 MiB chunks, `stripes` stripes, 11 BlueStores on 5 hosts) with
+    plugin `cuda`, in a temporary directory removed at the end; the
+    card's idle share over 13a (`window_cls`, default DeviceWindow);
+    and, as a comparison line, the stores' AUs through K2 on the card
+    against the stores' host crc."""
+    import asyncio
+    import shutil
+    import tempfile
+
+    from ceph_tpu_torch.ops import crc32c, rs_codec
+    from ceph_tpu_torch.utils.checksummer import Checksummer
+    root = tempfile.mkdtemp(prefix="chip_smoke_stores_")
+    try:
+        path = StorePath(port_modules(), root, K, M, CHUNK, stripes,
+                         STORE_LAYOUT,
+                         {"plugin": "cuda", "k": str(K), "m": str(M),
+                          "technique": "reed_sol_van",
+                          "crush-failure-domain": "osd"},
+                         {"device": str(dev)}, seed=STORE_SEED)
+        window = (window_cls or DeviceWindow)(torch)
+        rs_codec.launches = crc32c.launches = rs_codec.encode_local_launches = 0
+        out = asyncio.run(drive_store_path(path, window))
+        out["launches"] = {"gf_bitmatrix": rs_codec.launches,
+                           "crc32c_blocks": crc32c.launches,
+                           "gf_bitmatrix_csum": rs_codec.encode_local_launches}
+        out["idle_share"] = window.idle_share
+        out["busy_s"] = getattr(window, "busy_s", None)
+        out["window_s"] = getattr(window, "window_s", None)
+        # comparison line: the same AUs through K2 on the card
+        blocks = np.frombuffer(b"".join(path.readback[s] for s in
+                                        sorted(path.readback)),
+                               dtype=np.uint8).reshape(-1, 4096)
+        host = Checksummer("crc32c", 4096)
+        t0 = time.perf_counter()
+        host_csums = host.calculate(blocks)
+        host_s = time.perf_counter() - t0
+        stored = np.asarray([x for s in sorted(path.csums)
+                             for x in path.csums[s]], dtype=np.uint32)
+        on_card = torch.from_numpy(blocks.copy()).to(dev)
+        dev_csums = Checksummer("crc32c", 4096).calculate(on_card)
+        if not (np.array_equal(host_csums, stored)
+                and np.array_equal(np.asarray(dev_csums, np.uint32),
+                                   stored)):
+            raise AssertionError("K2 or the host crc differs from the "
+                                 "stores' per-AU csums")
+        k2 = crc32c.Crc32cDevice(4096, device=dev)
+        nb = blocks.shape[0]
+        bound, by = (bound_ms(nb * CSUM_BLOCK + 8 * nb,
+                              2 * (8 * CSUM_BLOCK) * 32 * nb, rates)
+                     if rates else (None, None))      # phase 4's accounting
+        out["k2_compare"] = {
+            "blocks": int(blocks.shape[0]), "host_ms": host_s * 1e3,
+            "k2_ms": (time_ms(torch, lambda: k2.blocks(on_card), 10)
+                      if dev.type == "cuda" else None),
+            "bound_ms": bound, "bound_by": by}
+        out["acting"] = {"before": path.acting, "after": path.acting_after,
+                         "up_after": path.up_after}
+        path.close()
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    out["card"] = smi
+    return out
+
+
+def log_store_path(r: dict, smi: str) -> None:
+    a, b, c, d = r["a"], r["b"], r["c"], r["d"]
+    gbs = lambda nbytes, s: nbytes / s / 1e9     # noqa: E731
+    log(f"phase 13a [{smi}]: EC object of {a['object_bytes'] >> 20} MiB, "
+        f"k={K} m={M}, {a['messages']} MOSDECSubOpWrite of "
+        f"{CHUNK >> 20} MiB to {len(r['acting']['before'])} BlueStores: "
+        f"encode {a['encode_s'] * 1e3:.1f} ms "
+        f"({gbs(a['object_bytes'], a['encode_s']):.3f} GB/s), HashInfo "
+        f"{a['hinfo_s'] * 1e3:.1f} ms, frames and messenger "
+        f"{a['wire_s'] * 1e3:.1f} ms "
+        f"({gbs(a['shard_bytes'], a['wire_s']):.3f} GB/s of shards), "
+        f"queue_transaction summed over the stores {a['store_s'] * 1e3:.1f} "
+        f"ms ({gbs(a['shard_bytes'], a['store_s']):.3f} GB/s); whole write "
+        f"{a['wall_s'] * 1e3:.1f} ms "
+        f"({gbs(a['object_bytes'], a['wall_s']):.3f} GB/s of object); card "
+        f"idle {share(r['idle_share'])} of 13a; K1 launches in phase 13: "
+        f"{r['launches']['gf_bitmatrix']}")
+    log(f"phase 13b [{smi}]: remount of the stores {b['remount_s'] * 1e3:.1f}"
+        f" ms, read back {b['bytes'] >> 20} MiB through {b['aus']} per-AU "
+        f"csum verifies {b['read_s'] * 1e3:.1f} ms, equal to the card's "
+        f"shards")
+    k2 = r["k2_compare"]
+    on_card = ("not measured (no card)" if k2["k2_ms"] is None else
+               f"{k2['k2_ms']:.4f} ms back to back (bound {k2['bound_ms']:.4f}"
+               f" ms by {k2['bound_by']}, data already on the card)")
+    log(f"phase 13b [{smi}]: comparison, not BlueStore's path: the same "
+        f"{k2['blocks']} AUs through K2 on the card {on_card} against the "
+        f"stores' host crc {k2['host_ms']:.2f} ms; csum vectors equal")
+    log(f"phase 13c [{smi}]: bitrot in shard {c['rot_shard']} (osd."
+        f"{c['osd']}, byte {c['at']}): read raised {c['error'][:40]!r}; "
+        f"{c['shards_read']} shards read over the wire in "
+        f"{c['read_s'] * 1e3:.1f} ms, decode on the card "
+        f"{c['decode_s'] * 1e3:.1f} ms, object bytes equal")
+    log(f"phase 13d [{smi}]: osds {d['out']} out: acting "
+        f"{d['acting_before']} -> {d['acting_after']} (pg_temp; CRUSH's up "
+        f"set {d['up_after']}); k survivors read "
+        f"{d['read_s'] * 1e3:.1f} ms, decode ({d['erasures']} erasures) "
+        f"{d['decode_s'] * 1e3:.1f} ms: degraded read "
+        f"{d['gb_per_s']:.3f} GB/s, object bytes equal")
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--json", help="also write all measurements here")
@@ -2108,6 +2597,15 @@ def main() -> int:
             raise AssertionError(f"the reactor path never launched {kname}")
     report["reactor"] = rx
     log(f"phase 12: {time.perf_counter() - t0:.1f} s")
+
+    # -- phase 13: an EC object through placement, the wire and the stores --
+    t0 = time.perf_counter()
+    st = phase_store_path(torch, np, dev, smi, rates)
+    log_store_path(st, smi)
+    if st["launches"]["gf_bitmatrix"] <= 0:
+        raise AssertionError("the store path never launched gf_bitmatrix")
+    report["store_path"] = st
+    log(f"phase 13: {time.perf_counter() - t0:.1f} s")
     plugin_launches = {kname: sum(plugins[pname]["launches"][kname]
                                   for pname, _ in PLUGINS)
                        for kname in ("gf_bitmatrix", "crc32c_blocks")}
@@ -2121,10 +2619,12 @@ def main() -> int:
          "shape": f"({BATCH},{K},{CHUNK}) -> ({BATCH},{M},{CHUNK}) uint8",
          "matched": k1_err == 0,
          "launches": svc_launches["gf_bitmatrix"]
-         + plugin_launches["gf_bitmatrix"] + rx["launches"]["gf_bitmatrix"],
+         + plugin_launches["gf_bitmatrix"] + rx["launches"]["gf_bitmatrix"]
+         + st["launches"]["gf_bitmatrix"],
          "launches_by_path": {"service": svc_launches["gf_bitmatrix"],
                               "plugins": plugin_launches["gf_bitmatrix"],
-                              "reactor": rx["launches"]["gf_bitmatrix"]},
+                              "reactor": rx["launches"]["gf_bitmatrix"],
+                              "store_path": st["launches"]["gf_bitmatrix"]},
          "max_abs_err": k1_err, "tolerance": 0, "ms": k1_ms, "kernel_ms": k1_ms,
          "isolated_ms": k1_iso_ms,
          "plain_ms": k1_plain_ms, "bound_ms": k1_bound, "bound_by": k1_by,
@@ -2135,10 +2635,13 @@ def main() -> int:
          "shape": f"({CRC_BATCH},{CSUM_BLOCK}) uint8 -> ({CRC_BATCH},) crc",
          "matched": k2_err == 0,
          "launches": svc_launches["crc32c_blocks"]
-         + plugin_launches["crc32c_blocks"] + rx["launches"]["crc32c_blocks"],
+         + plugin_launches["crc32c_blocks"] + rx["launches"]["crc32c_blocks"]
+         + st["launches"]["crc32c_blocks"],
          "launches_by_path": {"service": svc_launches["crc32c_blocks"],
                               "plugins": plugin_launches["crc32c_blocks"],
-                              "reactor": rx["launches"]["crc32c_blocks"]},
+                              "reactor": rx["launches"]["crc32c_blocks"],
+                              "store_path": st["launches"]["crc32c_blocks"]},
+         "store_path_compare": st["k2_compare"],
          "max_abs_err": k2_err, "tolerance": 0, "ms": k2_ms, "kernel_ms": k2_ms,
          "isolated_ms": k2_iso_ms,
          "plain_ms": k2_plain_ms, "bound_ms": k2_bound, "bound_by": k2_by,
@@ -2167,7 +2670,7 @@ def main() -> int:
             f"alone on an idle stream {kr['isolated_ms']:.4f} ms), bound {kr['bound_ms']:.4f} "
             f"ms by {kr['bound_by']} ({kr['bound_ms'] / kr['ms'] * 100:.1f}% "
             f"of it), plain {kr['plain_ms']:.3f} ms, launches on the main "
-            f"paths (phases 7, 9 and 12) {kr['launches']}; no single PyTorch call "
+            f"paths (phases 7, 9, 12 and 13) {kr['launches']}; no single PyTorch call "
             f"computes this function, so library_ms is null")
     report["kernels"] = kernels
     report["total_s"] = time.perf_counter() - t_start

@@ -5,7 +5,8 @@ tests/test_interleave.py:62-171 (the same seed gives the same digest and
 ordering in the port and in the reference for one workload), the
 staging-page guard on the port's `_DeviceSlot`, whose page on the CPU is
 a plain CPU tensor (:171), the lockset recorder on the port's
-`_Topology` (:233), and the foreign call_soon recorder (:295)."""
+`_Topology` (:233), the foreign call_soon recorder (:295), and the
+guarded rx view of a DATA_VIEW message off the port's wire (:202)."""
 from __future__ import annotations
 
 import asyncio
@@ -200,6 +201,42 @@ def test_staging_page_untracked_while_guards_are_off():
     assert sanitizer.guard_view(view, buf=page) is view
     slot.put_staging(page)
     assert bytes(view[:4]) == bytes(page[:4].numpy())
+
+
+def test_data_view_message_guarded_end_to_end():
+    """The port's DATA_VIEW messages hand their rx window out guarded in
+    sanitizer mode (tests/test_interleave.py:202): len, slices and bytes
+    work, the guard unwraps at the tx boundary, and a recycle of the
+    body buffer flips every outstanding view to raising. The frame is
+    byte-equal to the reference's."""
+    from ceph_tpu.msg import frames as ref_frames
+    from ceph_tpu.msg.messages import MOSDOp as RefMOSDOp
+    from ceph_tpu_torch.msg import frames
+    from ceph_tpu_torch.msg.messages import Message, MOSDOp
+    sanitizer.set_view_guards(True)
+    try:
+        m = MOSDOp({"op": "write"}, b"payload-bytes")
+        m.seq = 1
+        blob = bytes(frames.Frame(frames.Tag.MESSAGE,
+                                  m.encode_segments()).encode())
+        ref = RefMOSDOp({"op": "write"}, b"payload-bytes")
+        ref.seq = 1
+        assert blob == bytes(ref_frames.Frame(
+            ref_frames.Tag.MESSAGE, ref.encode_segments()).encode())
+        out = Message.decode_segments(frames.Frame.decode(blob).segments)
+        assert isinstance(out.data, sanitizer.GuardedView)
+        assert len(out.data) == len(b"payload-bytes")
+        assert bytes(out.data) == b"payload-bytes"
+        assert bytes(out.data[0:7]) == b"payload"
+        # the guard unwraps cleanly at the tx boundary (resend path)
+        assert out.encode_segments()[2] == b"payload-bytes"
+        sanitizer.recycle_buffer(blob)          # simulated pooled-rx reuse
+        with pytest.raises(sanitizer.UseAfterRecycleError):
+            bytes(out.data)
+        with pytest.raises(sanitizer.UseAfterRecycleError):
+            out.encode_segments()
+    finally:
+        sanitizer.set_view_guards(False)
 
 
 # -- lockset recorder on the port's topology -----------------------------------

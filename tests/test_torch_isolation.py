@@ -69,7 +69,21 @@ def test_every_module_is_listed():
                      "ceph_tpu_torch.utils.loopprof",
                      "ceph_tpu_torch.utils.admin_socket",
                      "ceph_tpu_torch.utils.reactor",
-                     "ceph_tpu_torch.utils.buffer"):
+                     "ceph_tpu_torch.utils.buffer",
+                     "ceph_tpu_torch.kv", "ceph_tpu_torch.kv.keyvaluedb",
+                     "ceph_tpu_torch.kv.lsm",
+                     "ceph_tpu_torch.objectstore",
+                     "ceph_tpu_torch.objectstore.types",
+                     "ceph_tpu_torch.objectstore.store",
+                     "ceph_tpu_torch.objectstore.memstore",
+                     "ceph_tpu_torch.objectstore.filestore",
+                     "ceph_tpu_torch.objectstore.bluestore",
+                     "ceph_tpu_torch.crush", "ceph_tpu_torch.crush.crush",
+                     "ceph_tpu_torch.crush.osdmap",
+                     "ceph_tpu_torch.native.frame_native",
+                     "ceph_tpu_torch.msg", "ceph_tpu_torch.msg.frames",
+                     "ceph_tpu_torch.msg.messages",
+                     "ceph_tpu_torch.msg.messenger"):
         assert expected in mods
 
 
