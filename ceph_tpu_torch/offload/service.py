@@ -1289,6 +1289,16 @@ class OffloadService:
         with self._dev_lock:
             return {dev: dict(d) for dev, d in self.device_stats.items()}
 
+    def device_metrics(self) -> dict:
+        """Per-device counters for the MgrClient report path (an OSD's
+        `device_cb`)."""
+        return {dev: {"offload_device_busy_seconds": round(d["busy_s"], 6),
+                      "offload_device_bytes": d["bytes"],
+                      "offload_device_batches": d["batches"],
+                      "offload_device_ops": d["ops"],
+                      "offload_device_fallback_ops": d["fallback_ops"]}
+                for dev, d in self.device_snapshot().items()}
+
     def _note_batch(self, n_ops: int, nbytes: int) -> None:
         self.perf.inc("batches")
         self.perf.inc("coalesced_ops", max(0, n_ops - 1))

@@ -1,1 +1,4 @@
-"""OSD data plane: ECUtil stripe layout and codec (ec_util.py)."""
+"""OSD data plane: daemon (daemon.py), PG + peering (pg.py), backends
+(backend.py replicated, ec_backend.py erasure), PGLog (pglog.py), EC
+stripe driver (ec_util.py), scrub (scrub.py), snapshots (snaps.py) and
+the op scheduler (scheduler/)."""

@@ -95,7 +95,24 @@ comes out against the host codec:
               the other 10 shards read over the wire (13c); an
               Incremental marks host0's OSDs out, pg_temp keeps the
               acting set on the shards' homes, and the object decodes from
-              the 8 survivors (13d). Every byte must equal the object's.
+              the 8 survivors (13d). Every byte must equal the object's;
+  phase 14    an EC pool on a booted cluster: one Monitor and 11 OSDs in
+              this process with device=cuda, each on its own BlueStore
+              (on the LSM), a profile plugin=cuda k=8 m=3 and `osd pool
+              create ecpool 32 erasure` (the mon derives 4 KiB chunks, a
+              32 KiB stripe), the device crc on through osd.0's config,
+              one RadosClient with 16 ops in flight (rados bench's -t):
+              64 objects of 4 MiB (seed 42) written (14a, the card traced
+              by torch.profiler) and read back (14b); one OSD killed and
+              every object read degraded once it is marked down (14c);
+              the OSD back on an empty BlueStore, timed until every PG is
+              clean (14d); one shard byte flipped by a raw store write
+              and every PG deep-scrubbed: exactly that shard is found and
+              repaired (14e); every shard on every OSD equal to the host
+              codec's encode; `ec offload status` from osd.0's admin
+              socket (14f); no batch may reach the host fallback. Per
+              step: seconds and GB/s of client bytes, the service's
+              device batches and riders a batch, K1-K3 launches.
 
 Phase 1 also holds K1 at the plugins' shapes: (1,k,N) -> r for k 3, 6,
 8, 12, r 1-4 and N clay's plane batches and ragged 1 MiB.
@@ -107,7 +124,7 @@ failure exits non-zero. Without a card it exits 2 and prints no result.
 Output: progress lines, the card's name and power limit as nvidia-smi
 reports them, a JSON line {"kernels": [...]}, and last
 {"ok": true, "device": {...}}. --json also writes every measurement to
-PATH (phase 13's under `store_path`).
+PATH (phase 13's under `store_path`, phase 14's under `cluster`).
 """
 from __future__ import annotations
 
@@ -137,6 +154,11 @@ FAULT_WRITES = 4                # phase 12b/e: one-stripe encodes a shard
 XSHARD_BLOCKS = 1024            # phase 12c: 4 KiB blocks of the crc job
 STORE_LAYOUT = (3, 3, 2, 2, 1)  # phase 13: OSDs a host (tests/test_crush.py:83)
 STORE_SEED = 42                 # phase 13: the object's bytes
+CLUSTER_PGS = 32                # phase 14: pg_num of the EC pool
+CLUSTER_OBJECTS = 64            # phase 14: objects (cut this, never the size)
+CLUSTER_OBJECT = 4 << 20        # phase 14: RBD's and CephFS's object size
+CLUSTER_INFLIGHT = 16           # phase 14: ops in flight (rados bench -t)
+CLUSTER_SEED = 42               # phase 14: the objects' bytes
 ERASURES = ((0, 1, 2), (4, 8, 10), (7, 9, 10))
 MESH_ERASURES = ((0, 1, 2), (1, K, K + 2))     # __graft_entry__.py's
 CORPUS = os.path.join(os.path.dirname(os.path.abspath(__file__)),
@@ -1972,6 +1994,431 @@ def log_store_path(r: dict, smi: str) -> None:
         f"{d['gb_per_s']:.3f} GB/s, object bytes equal")
 
 
+# -- phase 14: an EC pool on a booted cluster ----------------------------------
+
+def cluster_modules():
+    """The port's modules that phase 14 boots, by the names that
+    `ClusterPass` reads."""
+    import types
+
+    from ceph_tpu_torch import offload
+    from ceph_tpu_torch.mon import MonMap, Monitor
+    from ceph_tpu_torch.native import ec_native
+    from ceph_tpu_torch.objectstore import BlueStore, Transaction
+    from ceph_tpu_torch.ops import crc32c, rs_codec
+    from ceph_tpu_torch.osd.daemon import OSD
+    from ceph_tpu_torch.rados import RadosClient
+    from ceph_tpu_torch.utils.admin_socket import admin_command
+    return types.SimpleNamespace(
+        Monitor=Monitor, MonMap=MonMap, OSD=OSD, RadosClient=RadosClient,
+        BlueStore=BlueStore, Transaction=Transaction, offload=offload,
+        ec_native=ec_native, rs_codec=rs_codec, crc32c=crc32c,
+        admin_command=admin_command)
+
+
+class ClusterPass:
+    """Phase 14: one Monitor and k+m OSDs in this process, as a user
+    boots them, each OSD with `device` and its own BlueStore (on the LSM)
+    under `root`; an EC pool with plugin `cuda` (`osd pool create ...
+    erasure`: the mon derives 4 KiB chunks, upstream's default stripe
+    unit); one RadosClient with `inflight` ops in flight. Every OSD's
+    host is its own (`host{osd}`), so each PG's acting set holds every
+    OSD. The device crc is on (`ec_offload_crc_device`, set through
+    osd.0's config), so the shard csums and deep scrub's digests go to
+    the card as the encodes and decodes do."""
+
+    POOL = "ecpool"
+    TIMEOUT_S = 120.0
+
+    def __init__(self, mods, root: str, device: str, k: int, m: int,
+                 pg_num: int, objects: int, obj_bytes: int, inflight: int,
+                 seed: int = 42):
+        import numpy as np
+        self.mods, self.root, self.device = mods, root, device
+        self.k, self.m, self.pg_num = k, m, pg_num
+        self.n_osds = k + m
+        self.inflight = inflight
+        blob = np.random.default_rng(seed).integers(
+            0, 256, objects * obj_bytes, dtype=np.uint8)
+        self.data = {f"obj{i:03d}": blob[i * obj_bytes:(i + 1) * obj_bytes]
+                     .tobytes() for i in range(objects)}
+        self.obj_bytes = obj_bytes
+        self.osds: dict = {}
+        self.mon = self.client = self.io = None
+        self.asok = os.path.join(root, "osd.0.asok")
+
+    # -- the cluster -----------------------------------------------------------
+
+    async def start_osd(self, i: int, store_name: str | None = None):
+        store = self.mods.BlueStore(os.path.join(self.root,
+                                                 store_name or f"osd.{i}"))
+        osd = self.mods.OSD(
+            i, self.mon_addrs, store=store, device=self.device,
+            admin_socket_path=self.asok if i == 0 else None)
+        # 14e's deep scrub must be the one that meets the flipped byte:
+        # the background scrub rounds wait past the run
+        osd.config.set("osd_scrub_interval", 3600.0)
+        self.osds[i] = osd
+        await osd.start()
+        return osd
+
+    async def boot(self) -> dict:
+        import asyncio
+        import socket
+        with socket.socket() as s:
+            s.bind(("127.0.0.1", 0))
+            port = s.getsockname()[1]
+        monmap = self.mods.MonMap({"a": ("127.0.0.1", port)})
+        self.mon_addrs = list(monmap.mons.values())
+        t0 = time.perf_counter()
+        self.mon = self.mods.Monitor("a", monmap, store_path=os.path.join(
+            self.root, "mon.a.json"))
+        await self.mon.start()
+        while not (self.mon.paxos.is_leader() and self.mon.paxos.is_active()):
+            await asyncio.sleep(0.02)
+        for i in range(self.n_osds):
+            await self.start_osd(i)
+        self.client = self.mods.RadosClient(self.mon_addrs)
+        await self.client.connect()
+        await self.client.command({
+            "prefix": "osd erasure-code-profile set", "name": "ecprof",
+            "profile": {"plugin": "cuda", "k": str(self.k),
+                        "m": str(self.m), "device": self.device}})
+        out = await self.client.pool_create(
+            self.POOL, pg_num=self.pg_num, pool_type="erasure",
+            erasure_code_profile="ecprof")
+        self.osds[0].config.set("ec_offload_crc_device", True)
+        self.svc = self.mods.offload.get_service()
+        if not self.svc.crc_device:
+            raise AssertionError("ec_offload_crc_device did not reach the "
+                                 "service")
+        self.io = self.client.ioctx(self.POOL)
+        pool = self.osds[0].osdmap.get_pool(self.POOL)
+        self.stripe_width = pool.stripe_width
+        await self.wait_clean()
+        return {"boot_s": time.perf_counter() - t0, "pool": out,
+                "stripe_width": pool.stripe_width,
+                "chunk": pool.stripe_width // self.k}
+
+    async def wait_clean(self) -> float:
+        """Seconds until every PG of the pool is active on a full acting
+        set with nothing left to recover."""
+        import asyncio
+        loop = asyncio.get_running_loop()
+        t0 = loop.time()
+        while True:
+            prim = [pg for o in self.osds.values() for pg in o.pgs.values()
+                    if pg.pool.name == self.POOL and pg.is_primary()]
+            if len(prim) == self.pg_num and all(
+                    pg.state == "active" and not pg._pending_recovery
+                    and not pg._deferred_activate
+                    and sorted(pg.acting) == list(range(self.n_osds))
+                    for pg in prim):
+                return loop.time() - t0
+            if loop.time() - t0 > self.TIMEOUT_S:
+                raise TimeoutError(f"pool {self.POOL} never clean")
+            await asyncio.sleep(0.05)
+
+    async def stop(self) -> None:
+        import asyncio
+        if self.client is not None:
+            await asyncio.wait_for(self.client.shutdown(), 30)
+        for osd in list(self.osds.values()):
+            await asyncio.wait_for(osd.stop(), 30)
+        if self.mon is not None:
+            await asyncio.wait_for(self.mon.stop(), 30)
+
+    # -- traffic ---------------------------------------------------------------
+
+    def _counts(self) -> dict:
+        rs, crc = self.mods.rs_codec, self.mods.crc32c
+        return {"gf_bitmatrix": rs.launches, "crc32c_blocks": crc.launches,
+                "gf_bitmatrix_csum": rs.encode_local_launches,
+                "batches": self.svc.stats["batches"],
+                "riders": self.svc.stats["batched_ops"],
+                "fallback_ops": self.svc.stats["fallback_ops"]}
+
+    async def _step(self, fn) -> dict:
+        """Run `fn`, a coroutine function; its seconds, and what the
+        service and the kernels did meanwhile."""
+        before = self._counts()
+        t0 = time.perf_counter()
+        out = await fn() or {}
+        out["seconds"] = time.perf_counter() - t0
+        after = self._counts()
+        d = {k: after[k] - before[k] for k in after}
+        out["launches"] = {k: d[k] for k in ("gf_bitmatrix", "crc32c_blocks",
+                                             "gf_bitmatrix_csum")}
+        out["batches"] = d["batches"]
+        out["riders_per_batch"] = (d["riders"] / d["batches"]
+                                   if d["batches"] else None)
+        out["fallback_ops"] = d["fallback_ops"]
+        return out
+
+    async def _each(self, fn) -> None:
+        import asyncio
+        sem = asyncio.Semaphore(self.inflight)
+
+        async def one(oid):
+            async with sem:
+                await fn(oid)
+        await asyncio.gather(*[one(oid) for oid in self.data])
+
+    async def write_all(self) -> dict:
+        await self._each(lambda oid: self.io.write_full(oid, self.data[oid]))
+        return {"bytes": len(self.data) * self.obj_bytes}
+
+    async def read_all(self) -> dict:
+        async def read(oid):
+            if await self.io.read(oid) != self.data[oid]:
+                raise AssertionError(f"{oid} read back differs")
+        await self._each(read)
+        return {"bytes": len(self.data) * self.obj_bytes}
+
+    async def kill(self, victim: int) -> dict:
+        """Stop `victim`, wait until every survivor's map has it down,
+        then read every object degraded."""
+        import asyncio
+        t0 = time.perf_counter()
+        await self.osds.pop(victim).stop()
+        while not all(victim in o.osdmap.osds and not o.osdmap.osds[victim].up
+                      for o in self.osds.values()):
+            if time.perf_counter() - t0 > self.TIMEOUT_S:
+                raise TimeoutError(f"osd.{victim} never marked down")
+            await asyncio.sleep(0.05)
+        down_s = time.perf_counter() - t0
+        acting = sorted({tuple(pg.acting) for o in self.osds.values()
+                         for pg in o.pgs.values() if pg.is_primary()})
+        if any(victim in a for a in acting):
+            raise AssertionError(f"osd.{victim} still acting: {acting}")
+        t1 = time.perf_counter()
+        out = await self.read_all()
+        out.update(down_s=down_s, read_s=time.perf_counter() - t1,
+                   victim=victim, acting_sample=list(acting[0]))
+        return out
+
+    async def recover(self, victim: int) -> dict:
+        """`victim` back on an empty BlueStore (a replaced disk): recovery
+        rebuilds its shard of every object; seconds until clean."""
+        t0 = time.perf_counter()
+        await self.start_osd(victim, store_name=f"osd.{victim}.replaced")
+        boot_s = time.perf_counter() - t0
+        clean_s = await self.wait_clean()
+        pushed = sum(o.perf.dump().get("recovery_push", 0)
+                     for o in self.osds.values())
+        return {"boot_s": boot_s, "clean_s": clean_s, "pushes": pushed,
+                "bytes": len(self.data) * self.obj_bytes // self.k}
+
+    def _primary(self, oid: str):
+        for o in self.osds.values():
+            for pg in o.pgs.values():
+                if pg.is_primary() and oid in pg.list_objects():
+                    return pg
+        raise AssertionError(f"no primary holds {oid}")
+
+    async def scrub(self) -> dict:
+        """Flip one byte of one shard by a raw store write (the store's
+        own csums stay consistent, tests/test_scrub.py:30-38), then
+        deep-scrub every PG: exactly that shard must be found and
+        repaired."""
+        oid = sorted(self.data)[len(self.data) // 2]
+        prim = self._primary(oid)
+        holder = next(i for i in sorted(self.osds) if i != prim.host.whoami)
+        osd = self.osds[holder]
+        vpg = next(pg for pg in osd.pgs.values() if oid in pg.list_objects())
+        cid, gh = vpg.backend.coll(), vpg.backend.ghobject(oid)
+        blob = bytearray(osd.store.read(cid, gh))
+        at = len(blob) // 3
+        blob[at] ^= 0xFF
+        osd.store.queue_transaction(
+            self.mods.Transaction().write(cid, gh, 0, bytes(blob)))
+        results = []
+        for o in self.osds.values():
+            for pg in o.pgs.values():
+                if pg.pool.name == self.POOL and pg.is_primary():
+                    res = await pg.scrub(deep=True)
+                    results.append((pg.pgid.ps, res))
+        errors = sum(r["errors"] for _, r in results)
+        repaired = sum(r["repaired"] for _, r in results)
+        bad = sorted(o for _, r in results for o in r["inconsistent"])
+        if (errors, repaired, bad) != (1, 1, [oid]):
+            raise AssertionError(f"deep scrub found {errors} errors, "
+                                 f"repaired {repaired}, inconsistent {bad}; "
+                                 f"flipped {oid} on osd.{holder}")
+        return {"pgs": len(results), "errors": errors, "repaired": repaired,
+                "flipped": {"oid": oid, "osd": holder, "at": at},
+                "bytes": self.n_osds * len(self.data) * self.obj_bytes
+                // self.k}
+
+    async def admin_status(self) -> dict:
+        import asyncio
+        st = await asyncio.to_thread(self.mods.admin_command, self.asok,
+                                     "ec offload status")
+        if "error" in st or st["result"]["last_error"] \
+                or st["result"]["degraded"]:
+            raise AssertionError(f"ec offload status: {st}")
+        return st["result"]
+
+    def check_shards(self, np) -> dict:
+        """Every shard on every OSD equals the host codec's
+        (native/ec_native.cc) encode of its object's stripes."""
+        from ceph_tpu_torch.ec import gf256
+        coding = gf256.reed_sol_van_matrix(self.k, self.m)
+        chunk = self.stripe_width // self.k
+        want = {}
+        for oid, data in self.data.items():
+            d = np.frombuffer(data, dtype=np.uint8).reshape(
+                -1, self.k, chunk).transpose(1, 0, 2).reshape(self.k, -1)
+            par = np.empty((self.m, d.shape[1]), dtype=np.uint8)
+            self.mods.ec_native.encode(coding, d, par)
+            want[oid] = np.concatenate([d, par])
+        seen = 0
+        for i, osd in self.osds.items():
+            st = osd.store
+            for cid in st.list_collections():
+                for gh in st.collection_list(cid):
+                    attrs = st.getattrs(cid, gh)
+                    if gh.name not in want or "shard" not in attrs:
+                        continue
+                    s = int(attrs["shard"])
+                    if st.read(cid, gh) != want[gh.name][s].tobytes():
+                        raise AssertionError(f"osd.{i} shard {s} of "
+                                             f"{gh.name} differs from the "
+                                             f"host codec's")
+                    seen += 1
+        if seen != self.n_osds * len(self.data):
+            raise AssertionError(f"{seen} shards found, expected "
+                                 f"{self.n_osds * len(self.data)}")
+        return {"shards": seen}
+
+
+async def drive_cluster(cp: ClusterPass, np, window=None) -> dict:
+    """14a-14f on `cp`; `window`, a context manager, is entered around
+    14a alone. It is entered and left on a thread of its own: starting
+    the profiler and reading its trace take seconds, and on the loop's
+    thread they would stall every daemon's heartbeats at once."""
+    import asyncio
+    import concurrent.futures
+    out = {"boot": await cp.boot()}
+    side = concurrent.futures.ThreadPoolExecutor(1)
+    loop = asyncio.get_running_loop()
+    try:
+        async def traced_write():
+            if window is None:
+                return await cp.write_all()
+            t0 = time.perf_counter()
+            await loop.run_in_executor(side, window.__enter__)
+            enter_s = time.perf_counter() - t0
+            try:
+                res = await cp.write_all()
+            finally:
+                t0 = time.perf_counter()
+                await loop.run_in_executor(side, window.__exit__,
+                                           None, None, None)
+            res.update(window_enter_s=enter_s,
+                       window_exit_s=time.perf_counter() - t0)
+            return res
+        out["a"] = await cp._step(traced_write)
+        out["b"] = await cp._step(cp.read_all)
+        victim = cp.n_osds - 1
+        out["c"] = await cp._step(lambda: cp.kill(victim))
+        out["d"] = await cp._step(lambda: cp.recover(victim))
+        out["e"] = await cp._step(cp.scrub)
+        out["shards"] = cp.check_shards(np)
+        out["f"] = await cp.admin_status()
+        out["fallback_ops"] = cp.svc.stats["fallback_ops"]
+    finally:
+        side.shutdown()
+        await cp.stop()
+    if out["fallback_ops"]:
+        raise AssertionError(f"{out['fallback_ops']} ops reached the host "
+                             f"fallback")
+    return out
+
+
+def phase_cluster(torch, np, dev, smi: str, window_cls=None,
+                  objects: int = CLUSTER_OBJECTS,
+                  obj_bytes: int = CLUSTER_OBJECT) -> dict:
+    """Phase 14 on `dev`: ClusterPass at the north star's code (plugin
+    cuda, k=8 m=3) with the mon's 4 KiB chunks, `objects` objects of
+    `obj_bytes`, in a temporary directory removed at the end; the card's
+    idle share over 14a (`window_cls`, default DeviceWindow). Run it
+    after phase 0: the monitor instantiates the plugin on the card while
+    it validates the profile, and a first-use build there would stall
+    it."""
+    import asyncio
+    import shutil
+    import tempfile
+    mods = cluster_modules()
+    root = tempfile.mkdtemp(prefix="chip_smoke_cluster_")
+    try:
+        cp = ClusterPass(mods, root, str(dev), K, M, CLUSTER_PGS, objects,
+                         obj_bytes, CLUSTER_INFLIGHT, seed=CLUSTER_SEED)
+        window = (window_cls or DeviceWindow)(torch)
+        mods.rs_codec.launches = mods.crc32c.launches = 0
+        mods.rs_codec.encode_local_launches = 0
+        out = asyncio.run(asyncio.wait_for(drive_cluster(cp, np, window),
+                                           900))
+        out["launches"] = {"gf_bitmatrix": mods.rs_codec.launches,
+                           "crc32c_blocks": mods.crc32c.launches,
+                           "gf_bitmatrix_csum":
+                               mods.rs_codec.encode_local_launches}
+        out["idle_share"] = window.idle_share
+        out["busy_s"] = getattr(window, "busy_s", None)
+        out["window_s"] = getattr(window, "window_s", None)
+        out["objects"], out["object_bytes"] = objects, obj_bytes
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    out["card"] = smi
+    return out
+
+
+def log_cluster(r: dict, smi: str) -> None:
+    gbs = lambda nbytes, s: nbytes / s / 1e9     # noqa: E731
+
+    def line(step, what, nbytes, seconds, of="client bytes"):
+        s = r[step]
+        rpb = s["riders_per_batch"]
+        log(f"phase 14{step} [{smi}]: {what}: {seconds:.3f} s, "
+            f"{gbs(nbytes, seconds):.3f} GB/s of {of} (host clock); "
+            f"{s['batches']} device batches, "
+            f"{'n/a' if rpb is None else f'{rpb:.2f}'} riders a batch; "
+            f"launches K1 {s['launches']['gf_bitmatrix']}, K2 "
+            f"{s['launches']['crc32c_blocks']}, K3 "
+            f"{s['launches']['gf_bitmatrix_csum']}")
+    b = r["boot"]
+    log(f"phase 14 [{smi}]: 1 mon + {K + M} OSDs booted, pool "
+        f"{ClusterPass.POOL} pg_num {CLUSTER_PGS} (plugin cuda k={K} m={M}, "
+        f"{b['chunk']}-byte chunks, stripe {b['stripe_width']}) clean in "
+        f"{b['boot_s']:.2f} s; {r['objects']} objects of "
+        f"{r['object_bytes'] >> 20} MiB, {CLUSTER_INFLIGHT} in flight")
+    total = r["objects"] * r["object_bytes"]
+    line("a", "write_full every object", total, r["a"]["seconds"])
+    busy = "n/a" if r["busy_s"] is None else f"{r['busy_s'] * 1e3:.1f} ms"
+    log(f"phase 14a [{smi}]: card idle {share(r['idle_share'])} of the "
+        f"writes ({busy} busy)")
+    line("b", "read every object", total, r["b"]["seconds"])
+    c = r["c"]
+    line("c", f"osd.{c['victim']} killed, marked down in "
+         f"{c['down_s']:.2f} s, every object read degraded", total,
+         c["read_s"])
+    d = r["d"]
+    line("d", f"osd.{c['victim']} back on an empty store, {d['pushes']} "
+         f"shards pushed, clean after {d['clean_s']:.2f} s", d["bytes"],
+         d["clean_s"], of="rebuilt shard bytes")
+    e = r["e"]
+    line("e", f"one byte flipped in {e['flipped']['oid']} on osd."
+         f"{e['flipped']['osd']}, deep scrub of {e['pgs']} PGs: "
+         f"{e['errors']} error, {e['repaired']} repaired", e["bytes"],
+         e["seconds"], of="shard bytes scrubbed")
+    f = r["f"]
+    log(f"phase 14f [{smi}]: ec offload status from osd.0's admin socket: "
+        f"enabled {f['enabled']}, degraded {f['degraded']}, crc_device "
+        f"{f['settings']['crc_device']}; every shard of {r['shards']['shards']}"
+        f" equal to the host codec's; fallback_ops {r['fallback_ops']}; "
+        f"launches in phase 14: {r['launches']}")
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--json", help="also write all measurements here")
@@ -2606,6 +3053,16 @@ def main() -> int:
         raise AssertionError("the store path never launched gf_bitmatrix")
     report["store_path"] = st
     log(f"phase 13: {time.perf_counter() - t0:.1f} s")
+
+    # -- phase 14: an EC pool on a booted cluster ------------------------------
+    t0 = time.perf_counter()
+    cl = phase_cluster(torch, np, dev, smi)
+    log_cluster(cl, smi)
+    for kname in ("gf_bitmatrix", "crc32c_blocks"):
+        if cl["launches"][kname] <= 0:
+            raise AssertionError(f"the cluster never launched {kname}")
+    report["cluster"] = cl
+    log(f"phase 14: {time.perf_counter() - t0:.1f} s")
     plugin_launches = {kname: sum(plugins[pname]["launches"][kname]
                                   for pname, _ in PLUGINS)
                        for kname in ("gf_bitmatrix", "crc32c_blocks")}
@@ -2620,11 +3077,12 @@ def main() -> int:
          "matched": k1_err == 0,
          "launches": svc_launches["gf_bitmatrix"]
          + plugin_launches["gf_bitmatrix"] + rx["launches"]["gf_bitmatrix"]
-         + st["launches"]["gf_bitmatrix"],
+         + st["launches"]["gf_bitmatrix"] + cl["launches"]["gf_bitmatrix"],
          "launches_by_path": {"service": svc_launches["gf_bitmatrix"],
                               "plugins": plugin_launches["gf_bitmatrix"],
                               "reactor": rx["launches"]["gf_bitmatrix"],
-                              "store_path": st["launches"]["gf_bitmatrix"]},
+                              "store_path": st["launches"]["gf_bitmatrix"],
+                              "cluster": cl["launches"]["gf_bitmatrix"]},
          "max_abs_err": k1_err, "tolerance": 0, "ms": k1_ms, "kernel_ms": k1_ms,
          "isolated_ms": k1_iso_ms,
          "plain_ms": k1_plain_ms, "bound_ms": k1_bound, "bound_by": k1_by,
@@ -2636,11 +3094,12 @@ def main() -> int:
          "matched": k2_err == 0,
          "launches": svc_launches["crc32c_blocks"]
          + plugin_launches["crc32c_blocks"] + rx["launches"]["crc32c_blocks"]
-         + st["launches"]["crc32c_blocks"],
+         + st["launches"]["crc32c_blocks"] + cl["launches"]["crc32c_blocks"],
          "launches_by_path": {"service": svc_launches["crc32c_blocks"],
                               "plugins": plugin_launches["crc32c_blocks"],
                               "reactor": rx["launches"]["crc32c_blocks"],
-                              "store_path": st["launches"]["crc32c_blocks"]},
+                              "store_path": st["launches"]["crc32c_blocks"],
+                              "cluster": cl["launches"]["crc32c_blocks"]},
          "store_path_compare": st["k2_compare"],
          "max_abs_err": k2_err, "tolerance": 0, "ms": k2_ms, "kernel_ms": k2_ms,
          "isolated_ms": k2_iso_ms,
@@ -2654,10 +3113,12 @@ def main() -> int:
                   f"+ int64 checksum",
          "matched": k3_err == 0,
          "launches": svc_launches["gf_bitmatrix_csum"]
-         + rx["launches"]["gf_bitmatrix_csum"],
+         + rx["launches"]["gf_bitmatrix_csum"]
+         + cl["launches"]["gf_bitmatrix_csum"],
          "launches_by_path": {
              "service": svc_launches["gf_bitmatrix_csum"],
-             "reactor": rx["launches"]["gf_bitmatrix_csum"]},
+             "reactor": rx["launches"]["gf_bitmatrix_csum"],
+             "cluster": cl["launches"]["gf_bitmatrix_csum"]},
          "max_abs_err": k3_err, "tolerance": 0, "ms": k3_ms, "kernel_ms": k3_ms,
          "isolated_ms": k3_iso_ms,
          "plain_ms": k3_plain_ms, "bound_ms": k3_bound, "bound_by": k3_by,
@@ -2670,7 +3131,7 @@ def main() -> int:
             f"alone on an idle stream {kr['isolated_ms']:.4f} ms), bound {kr['bound_ms']:.4f} "
             f"ms by {kr['bound_by']} ({kr['bound_ms'] / kr['ms'] * 100:.1f}% "
             f"of it), plain {kr['plain_ms']:.3f} ms, launches on the main "
-            f"paths (phases 7, 9, 12 and 13) {kr['launches']}; no single PyTorch call "
+            f"paths (phases 7, 9, 12, 13 and 14) {kr['launches']}; no single PyTorch call "
             f"computes this function, so library_ms is null")
     report["kernels"] = kernels
     report["total_s"] = time.perf_counter() - t_start

@@ -6,7 +6,9 @@ ordering in the port and in the reference for one workload), the
 staging-page guard on the port's `_DeviceSlot`, whose page on the CPU is
 a plain CPU tensor (:171), the lockset recorder on the port's
 `_Topology` (:233), the foreign call_soon recorder (:295), and the
-guarded rx view of a DATA_VIEW message off the port's wire (:202)."""
+guarded rx view of a DATA_VIEW message off the port's wire (:202), and
+the explorer catching a reverted replica-splice bug in the port's PGLog
+(:330), with the same failing seeds as the reference's."""
 from __future__ import annotations
 
 import asyncio
@@ -331,3 +333,58 @@ def test_foreign_call_soon_recorded_and_drained():
         assert "test_torch_interleave" in events[0]["callback"]
         assert sanitizer.take_foreign_call_soon() == []
     run(main())
+
+
+# -- re-introduced-bug detection (tests/test_interleave.py:330) ----------------
+
+SPLICE_SEEDS = 20
+
+
+def _buggy_insert(log, entry):
+    """The replica insert before the splice fix: the `version > head`
+    guard drops out-of-order arrivals, leaving a log hole."""
+    if entry.version > log.head:
+        log.append(entry)
+
+
+async def _splice_sweep(interleave_mod, pglog_mod):
+    """(failing seeds, the first failing seed's two replays) of the
+    reverted insert; the real insert must hold on every seed."""
+    async def deliver(insert_fn, seed):
+        async with interleave_mod.explore(seed, defer_p=0.5) as ex:
+            log = pglog_mod.PGLog()
+
+            async def arrive(v):
+                if interleave_mod.armed():
+                    await interleave_mod.yield_point("replica_rx")
+                insert_fn(log, pglog_mod.LogEntry(
+                    version=(1, v), op="modify", oid=f"o{v}", reqid=(9, v)))
+
+            await asyncio.gather(arrive(5), arrive(6), arrive(7))
+            return [e.version for e in log.entries], ex.digest()
+
+    want = [(1, 5), (1, 6), (1, 7)]
+    healthy_insert = pglog_mod.PGLog.insert
+    failing = []
+    for seed in range(SPLICE_SEEDS):
+        got, _ = await deliver(lambda lg, e: healthy_insert(lg, e), seed)
+        assert got == want, f"seed {seed}: real splice diverged"
+        got_bad, _ = await deliver(_buggy_insert, seed)
+        if got_bad != want:
+            failing.append(seed)
+    assert failing, "no schedule reordered the arrivals"
+    r1 = await deliver(_buggy_insert, failing[0])
+    r2 = await deliver(_buggy_insert, failing[0])
+    assert r1 == r2 and r1[0] != want
+    return failing, r1
+
+
+def test_seeded_schedule_catches_reverted_splice_bug():
+    """The explorer finds the reverted splice in the port's PGLog, the
+    failing seed replays bit-identically, and the port fails on the same
+    seeds with the same result and schedule digest as the reference."""
+    from ceph_tpu.osd import pglog as ref_pglog
+    from ceph_tpu_torch.osd import pglog
+    port = run(_splice_sweep(interleave, pglog))
+    ref = run(_splice_sweep(ref_interleave, ref_pglog))
+    assert port == ref

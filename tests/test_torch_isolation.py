@@ -29,6 +29,100 @@ def _is_reference(name: str) -> bool:
     return name == "ceph_tpu" or name.startswith("ceph_tpu.")
 
 
+#: the control plane, the OSD and librados: copies of the reference's
+#: modules with their imports renamed
+CLUSTER_COPIES = (
+    "ceph_tpu_torch.mon", "ceph_tpu_torch.mon.store",
+    "ceph_tpu_torch.mon.paxos", "ceph_tpu_torch.mon.monitor",
+    "ceph_tpu_torch.mon.mon_client", "ceph_tpu_torch.mgr",
+    "ceph_tpu_torch.mgr.mgr_client", "ceph_tpu_torch.osd.scheduler",
+    "ceph_tpu_torch.osd.scheduler.profile",
+    "ceph_tpu_torch.osd.scheduler.dmclock",
+    "ceph_tpu_torch.utils.work_queue", "ceph_tpu_torch.osd.pglog",
+    "ceph_tpu_torch.osd.snaps", "ceph_tpu_torch.osd.backend",
+    "ceph_tpu_torch.cls", "ceph_tpu_torch.cls.registry",
+    "ceph_tpu_torch.cls.lock", "ceph_tpu_torch.osd.pg",
+    "ceph_tpu_torch.osd.ec_backend", "ceph_tpu_torch.osd.scrub",
+    "ceph_tpu_torch.osd.daemon", "ceph_tpu_torch.rados",
+    "ceph_tpu_torch.rados.client", "ceph_tpu_torch.rados.aio")
+
+#: the device seams, where a copy may differ from the reference: module
+#: -> (functions, imports the copy adds)
+SEAMS = {
+    "ceph_tpu_torch.osd.daemon": (
+        {"OSD.__init__", "OSD._service_devices", "OSD.start"},
+        {"from ceph_tpu_torch import device as _device"}),
+    "ceph_tpu_torch.osd.ec_backend": ({"ECBackend.__init__"}, set()),
+}
+
+
+def _source_path(name: str, pkg: str) -> str:
+    rel = name.split(".", 1)[1].replace(".", os.sep) if "." in name else ""
+    base = os.path.join(REPO, pkg, rel)
+    return os.path.join(base, "__init__.py") if os.path.isdir(base) \
+        else base + ".py"
+
+
+def _shape(path: str, rename: bool) -> tuple[dict, set]:
+    """A module's definitions as {qualified name: AST dump} (docstrings
+    dropped) and its import statements, with `ceph_tpu` renamed to the
+    port's package when `rename`."""
+    tree = ast.parse(open(path).read())
+    for node in ast.walk(tree):
+        body = getattr(node, "body", None)
+        if (isinstance(node, (ast.Module, ast.ClassDef, ast.FunctionDef,
+                              ast.AsyncFunctionDef)) and body
+                and isinstance(body[0], ast.Expr)
+                and isinstance(body[0].value, ast.Constant)
+                and isinstance(body[0].value.value, str)):
+            node.body = body[1:] or [ast.Pass()]
+        if rename and isinstance(node, ast.ImportFrom) and node.module \
+                and _is_reference(node.module):
+            node.module = "ceph_tpu_torch" + node.module[len("ceph_tpu"):]
+        if rename and isinstance(node, ast.alias) and _is_reference(
+                node.name):
+            node.name = "ceph_tpu_torch" + node.name[len("ceph_tpu"):]
+    defs, imports = {}, set()
+
+    def visit(stmts, prefix):
+        for i, st in enumerate(stmts):
+            if isinstance(st, (ast.FunctionDef, ast.AsyncFunctionDef)):
+                defs[prefix + st.name] = ast.dump(st)
+            elif isinstance(st, ast.ClassDef):
+                visit(st.body, prefix + st.name + ".")
+                st.body = []
+                defs[prefix + st.name] = ast.dump(st)
+            elif isinstance(st, (ast.Import, ast.ImportFrom)) and not prefix:
+                imports.add(ast.unparse(st))
+            else:
+                defs[f"{prefix}<stmt {i}>"] = ast.dump(st)
+    visit(tree.body, "")
+    return defs, imports
+
+
+@pytest.mark.parametrize("name", [n for n in CLUSTER_COPIES
+                                  if n != "ceph_tpu_torch.mgr"])
+def test_copy_is_the_reference_but_for_names_and_seams(name):
+    """Each copied module is AST-equal to the reference's once the
+    package is renamed and docstrings are dropped, except in the device
+    seams listed in SEAMS."""
+    port_defs, port_imports = _shape(_source_path(name, "ceph_tpu_torch"),
+                                     rename=False)
+    ref_defs, ref_imports = _shape(_source_path(name, "ceph_tpu"),
+                                   rename=True)
+    seam_fns, seam_imports = SEAMS.get(name, (set(), set()))
+    assert port_imports - ref_imports == seam_imports
+    assert ref_imports <= port_imports
+    differ = {k for k in port_defs.keys() | ref_defs.keys()
+              if port_defs.get(k) != ref_defs.get(k)}
+    assert differ == seam_fns
+
+
+def test_mgr_exports_only_the_client():
+    from ceph_tpu_torch import mgr
+    assert mgr.__all__ == ["MgrClient"]
+
+
 def test_every_module_is_listed():
     mods = _port_modules()
     for expected in ("ceph_tpu_torch.device", "ceph_tpu_torch.convert",
@@ -83,7 +177,8 @@ def test_every_module_is_listed():
                      "ceph_tpu_torch.native.frame_native",
                      "ceph_tpu_torch.msg", "ceph_tpu_torch.msg.frames",
                      "ceph_tpu_torch.msg.messages",
-                     "ceph_tpu_torch.msg.messenger"):
+                     "ceph_tpu_torch.msg.messenger",
+                     *CLUSTER_COPIES):
         assert expected in mods
 
 
@@ -135,6 +230,13 @@ def _new_service():
     return asyncio.run(make())
 
 
+def _osd_start():
+    import asyncio
+
+    from ceph_tpu_torch.osd.daemon import OSD
+    return asyncio.run(OSD(0, [("127.0.0.1", 1)]).start())
+
+
 def _entry_points():
     from ceph_tpu_torch import device
     from ceph_tpu_torch.parallel import mesh
@@ -171,6 +273,7 @@ def _entry_points():
         "bench_driver device": lambda: bench_driver.stage_device(),
         "bench_driver probe": lambda: bench_driver.stage_probe(),
         "offload service": _new_service,
+        "OSD.start": _osd_start,
         "make_mesh": lambda: mesh.make_mesh(),
         "mesh_storage_impl": lambda: mesh.mesh_storage_impl(
             mesh.make_mesh(), 4, 2),
