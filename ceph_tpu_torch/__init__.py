@@ -40,9 +40,20 @@ Subpackages (same layout as ceph_tpu):
           messages with the EC sub-ops, the asyncio Messenger
   native  ctypes loader for the repo's host C++ codec, crc32c and msgr2
           frame codec
-  tools   ec_benchmark, bench_driver (its cpu, probe, device and
-          mesh_scaling stages and the attribution waterfall), ec_tool,
-          ec_non_regression (the corpus check), gen_bitmatrix_tables
+  mon     the monitor (Paxos, OSDMonitor) and the MonClient
+  mgr     the mgr daemon (report fan-in with each OSD's per-card
+          offload rows, health digest, modules), its prometheus
+          exporter and metrics history, and the daemons' MgrClient
+  rados   librados: RadosClient, IoCtx, aio completions
+  tools   ec_benchmark, bench_driver (its cpu, probe, device,
+          mesh_scaling, cluster_tpu and attribution stages),
+          cluster_boot (ephemeral clusters, thread- or process-sharded),
+          rados_bench, ec_tool, ec_non_regression (the corpus check),
+          gen_bitmatrix_tables
+
+The OSD, its PGs and EC backend are in `osd`; the daemon runtime
+(thread- and process-backed reactor shards, the worker that hosts OSDs
+in a process of its own, admin sockets) in `utils`.
 """
 
 __version__ = "0.1.0"

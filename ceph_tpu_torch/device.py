@@ -8,6 +8,7 @@ wrapper takes its plain PyTorch version.
 from __future__ import annotations
 
 import contextlib
+import os
 import time
 
 import numpy as np
@@ -46,14 +47,85 @@ def resolve(device: str | torch.device | None = DEFAULT_DEVICE) -> torch.device:
 def resolve_all(devices=None) -> list[torch.device]:
     """A device list for the multi-device entry points (the mesh, the
     offload service): each entry resolved as `resolve` does, repeats
-    allowed; None means every visible card, and raises without one."""
+    allowed; None means every visible card, sliced to this process's
+    partition (`partition`), and raises without one."""
     if devices is not None:
         return [resolve(d) for d in devices]
     if not torch.cuda.is_available() or torch.cuda.device_count() == 0:
         raise DeviceUnavailable(
             "no CUDA device; pass devices=['cpu', ...] to run the plain "
             "PyTorch versions")
-    return [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
+    return partition([torch.device("cuda", i)
+                      for i in range(torch.cuda.device_count())])
+
+
+#: "j/W", set by the process-backed reactor when it spawns worker j of W
+PARTITION_ENV = "CEPH_TPU_OFFLOAD_DEVICE_PARTITION"
+
+
+def _device_partition() -> tuple[int, int] | None:
+    """(worker_ordinal, num_workers) from CEPH_TPU_OFFLOAD_DEVICE_PARTITION
+    ("j/W", set by the process-backed reactor at worker spawn): each
+    worker process serves a disjoint round-robin slice of the visible
+    cards, so per-card warmth (kernels loaded, pinned pages) stays
+    process-local instead of every worker contending for the full set.
+    None when unset or malformed."""
+    raw = os.environ.get(PARTITION_ENV)
+    if not raw:
+        return None
+    try:
+        j, w = raw.split("/", 1)
+        j, w = int(j), int(w)
+    except ValueError:
+        return None
+    if w < 1 or j < 0:
+        return None
+    return j % w, w
+
+
+def partition(devs: list) -> list:
+    """`devs` sliced to this process's partition: worker j of W takes
+    devs[j::W], or devs[:1] when the slice is empty (W workers over
+    fewer cards than W share the first: on one card every worker gets
+    it). Unpartitioned processes keep the whole list."""
+    part = _device_partition()
+    if part is None or not devs:
+        return list(devs)
+    j, w = part
+    return devs[j::w] or devs[:1]
+
+
+def service_devices(device: str = DEFAULT_DEVICE) -> list[torch.device]:
+    """The offload service's device list for an OSD on `device`,
+    resolved: `cuda` is every visible card and `cpu` eight CPU slots
+    (the reference's eight virtual CPU devices), each sliced to this
+    process's partition; `cuda:N` is that card alone."""
+    if device == "cpu":
+        return resolve_all(partition(["cpu"] * 8))
+    return resolve_all(None if device == "cuda" else [device])
+
+
+def open_devices(devices: list[torch.device]) -> None:
+    """Create this process's CUDA context on every card in `devices`
+    and load the kernels' libraries, so the first dispatch neither
+    stalls its event loop on context creation nor on a library load.
+    Raises DeviceUnavailable when a card cannot be opened; does nothing
+    for CPU entries."""
+    cards = sorted({d.index for d in devices if d.type == "cuda"})
+    if not cards:
+        return
+    try:
+        for i in cards:
+            torch.zeros(1, device=torch.device("cuda", i))
+            torch.cuda.synchronize(i)
+    except RuntimeError as e:
+        raise DeviceUnavailable(f"cannot open cuda:{cards}: {e}") from e
+    from ceph_tpu_torch.ops import _build, crc32c, rs_codec
+    for name, signatures in (
+            (rs_codec._KERNEL, rs_codec._SIGNATURES),
+            (rs_codec._CSUM_KERNEL, rs_codec._CSUM_SIGNATURES),
+            (crc32c._KERNEL, crc32c._SIGNATURES)):
+        _build.load(name, signatures)
 
 
 def host_tensor(data) -> torch.Tensor:

@@ -525,6 +525,13 @@ class OffloadService:
     @property
     def _topo(self) -> _Topology:
         pool = reactor.pool_for(self._loop)
+        if pool is not None and \
+                getattr(pool, "backend", "thread") != "thread":
+            # process-backed shards share no memory: shared() is
+            # structurally absent there, and each worker process keeps
+            # its OWN topology over its partition of the cards (the
+            # parent's control loop likewise stays private)
+            pool = None
         if self._topo_obj is None or pool is not self._topo_pool:
             self._topo_pool = pool
             self._topo_obj = pool.shared("offload_topology", _Topology) \

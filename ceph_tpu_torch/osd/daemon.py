@@ -512,16 +512,15 @@ class OSD(Dispatcher):
 
     # -- lifecycle -----------------------------------------------------------
 
-    def _service_devices(self) -> list:
-        """The offload service's device list for `self.device`, resolved
-        (DeviceUnavailable without the card it names)."""
-        if self.device == "cpu":
-            return _device.resolve_all(["cpu"] * 8)
-        return _device.resolve_all(None if self.device == "cuda"
-                                   else [self.device])
-
     async def start(self, timeout: float = 30.0) -> tuple[str, int]:
-        devices = self._service_devices()
+        # the offload service's device list (DeviceUnavailable without
+        # the card it names), sliced to this process's partition when a
+        # process-backed reactor spawned it
+        devices = _device.service_devices(self.device)
+        # this process's CUDA context and kernels, before the daemon
+        # joins the map: done at the first dispatch instead, they would
+        # stall the loop past its peers' heartbeat grace
+        _device.open_devices(devices)
         try:
             self.store.mount()
         except StoreError as e:

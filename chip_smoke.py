@@ -112,7 +112,30 @@ comes out against the host codec:
               codec's encode; `ec offload status` from osd.0's admin
               socket (14f); no batch may reach the host fallback. Per
               step: seconds and GB/s of client bytes, the service's
-              device batches and riders a batch, K1-K3 launches.
+              device batches and riders a batch, K1-K3 launches;
+  phase 15    phase 14's pool with its OSDs in worker processes that each
+              open the card (`ephemeral_cluster(reactor_procs=N)`, OSDs
+              on MemStore, a MgrDaemon on this loop): 15a the process
+              curve, reactor_procs 0 (every OSD on this loop), 1, 2 and 4
+              (capped at the cores): boot, write and read GB/s of client
+              bytes, every object equal, a deep scrub of every PG with 0
+              errors, fallback_ops 0 in every process (`ec offload
+              status` through each worker's control channel), K1 and K2
+              launches summed over the processes, pinned staging bytes
+              and card memory per worker; 15b on the widest write, the
+              card's share two ways (nvidia-smi's utilization.gpu on a
+              side thread, and the services' offload_device_busy_seconds
+              from the mgr's index once per worker); 15c the mgr's
+              /metrics carries one ceph_device row per OSD, one device
+              failure armed in one worker raises TPU_OFFLOAD_DEGRADED
+              naming that worker's OSDs alone while writes go on equal on
+              the host codec, and the check clears once the breaker's
+              probe recovers; 15d a worker SIGKILLed with its CUDA
+              context, its OSDs marked down, every object read degraded
+              through K1 in the survivors, the worker respawned (it
+              re-opens the card) and the pool clean again; 15e the
+              bench driver's cluster_tpu and attribution stages on the
+              card, each a child process.
 
 Phase 1 also holds K1 at the plugins' shapes: (1,k,N) -> r for k 3, 6,
 8, 12, r 1-4 and N clay's plane batches and ragged 1 MiB.
@@ -124,7 +147,8 @@ failure exits non-zero. Without a card it exits 2 and prints no result.
 Output: progress lines, the card's name and power limit as nvidia-smi
 reports them, a JSON line {"kernels": [...]}, and last
 {"ok": true, "device": {...}}. --json also writes every measurement to
-PATH (phase 13's under `store_path`, phase 14's under `cluster`).
+PATH (phase 13's under `store_path`, phase 14's under `cluster`, phase
+15's under `procs`).
 """
 from __future__ import annotations
 
@@ -159,10 +183,16 @@ CLUSTER_OBJECTS = 64            # phase 14: objects (cut this, never the size)
 CLUSTER_OBJECT = 4 << 20        # phase 14: RBD's and CephFS's object size
 CLUSTER_INFLIGHT = 16           # phase 14: ops in flight (rados bench -t)
 CLUSTER_SEED = 42               # phase 14: the objects' bytes
+PROC_COUNTS = (0, 1, 2, 4)      # phase 15a: reactor_procs (0: one loop)
+PROC_FAULT_SHARD = 1            # phase 15c: the worker whose card call fails
+PROC_CRASH_SHARD = 4            # phase 15d: the worker killed (2 OSDs of 11)
+HB_GRACE_DEFAULT = 3.0          # phase 15d: osd_heartbeat_grace's default
+# phase 15e: the cluster stages' curves, capped through their own knobs
+STAGE_KNOBS = {"CEPH_TPU_REACTOR_SHARDS": "2", "CEPH_TPU_REACTOR_PROCS": "2"}
+REPO = os.path.dirname(os.path.abspath(__file__))
 ERASURES = ((0, 1, 2), (4, 8, 10), (7, 9, 10))
 MESH_ERASURES = ((0, 1, 2), (1, K, K + 2))     # __graft_entry__.py's
-CORPUS = os.path.join(os.path.dirname(os.path.abspath(__file__)),
-                      "ceph-erasure-code-corpus")
+CORPUS = os.path.join(REPO, "ceph-erasure-code-corpus")
 # phase 9: the corpus profiles of every plugin, at full width
 PLUGINS = (("isa", {"k": "8", "m": "3", "technique": "reed_sol_van"}),
            ("shec", {"k": "6", "m": "4", "c": "3"}),
@@ -2419,6 +2449,586 @@ def log_cluster(r: dict, smi: str) -> None:
         f"launches in phase 14: {r['launches']}")
 
 
+# -- phase 15: the EC pool's OSDs in worker processes --------------------------
+
+class SmiSampler:
+    """nvidia-smi's utilization.gpu (the share of the last sample period
+    in which any kernel ran, across every context on the card) read on a
+    side thread while the block runs."""
+
+    QUERY = ["nvidia-smi", "--query-gpu=utilization.gpu",
+             "--format=csv,noheader,nounits"]
+
+    def __enter__(self):
+        self.samples: list[float] = []
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._run, daemon=True)
+        self._thread.start()
+        return self
+
+    def _run(self) -> None:
+        while not self._stop.is_set():
+            out = subprocess.run(self.QUERY, capture_output=True, text=True,
+                                 check=True, timeout=30).stdout
+            self.samples.append(float(out.strip().splitlines()[0]))
+            self._stop.wait(0.05)
+
+    def __exit__(self, *exc):
+        self._stop.set()
+        self._thread.join()
+        if exc[0] is None and not self.samples:
+            raise AssertionError("nvidia-smi gave no utilization sample")
+        return False
+
+    @property
+    def mean(self) -> float | None:
+        return statistics.mean(self.samples) / 100 if self.samples else None
+
+
+def proc_modules():
+    """The port's modules that phase 15 drives, by the names that
+    `ProcCluster` reads."""
+    import types
+
+    from ceph_tpu_torch.mgr import MgrDaemon
+    from ceph_tpu_torch.ops import crc32c, rs_codec
+    from ceph_tpu_torch.tools.cluster_boot import ephemeral_cluster
+    return types.SimpleNamespace(MgrDaemon=MgrDaemon, rs_codec=rs_codec,
+                                 crc32c=crc32c,
+                                 ephemeral_cluster=ephemeral_cluster)
+
+
+class ProcCluster:
+    """Phase 15: phase 14's pool with its OSDs in `procs` worker processes
+    (`ephemeral_cluster(reactor_procs=procs)`; 0 puts every OSD on this
+    process's loop, the baseline), each OSD on a MemStore (process-backed
+    OSDs build their own stores), and a MgrDaemon on this loop (shard 0)
+    whose index takes every OSD's reports; one RadosClient with
+    `inflight` ops in flight. The device crc is on and background scrubs
+    wait past the run, as in phase 14."""
+
+    POOL = "ecpool"
+    TIMEOUT_S = 120.0
+    REPORT_PERIOD = 0.25        # the mgr hands it to every daemon
+
+    def __init__(self, mods, device: str, procs: int, k: int, m: int,
+                 pg_num: int, data: dict, inflight: int):
+        self.mods, self.device, self.procs = mods, device, procs
+        self.k, self.m, self.pg_num = k, m, pg_num
+        self.n_osds = k + m
+        self.data, self.inflight = data, inflight
+        self.obj_bytes = len(next(iter(data.values())))
+
+    # -- the cluster -----------------------------------------------------------
+
+    async def boot(self, stack) -> dict:
+        t0 = time.perf_counter()
+        self.client, self.osds, self.mon = await stack.enter_async_context(
+            self.mods.ephemeral_cluster(
+                self.n_osds, prefix="chip_smoke_procs_",
+                reactor_procs=self.procs, device=self.device))
+        boot_s = time.perf_counter() - t0
+        self.pool = self.osds[0].pool if self.procs else None
+        self.mgr = self.mods.MgrDaemon(list(self.mon.monmap.mons.values()),
+                                       modules=[], exporter_port=0)
+        self.mgr.REPORT_PERIOD = self.mgr.TICK_INTERVAL = self.REPORT_PERIOD
+        await self.mgr.start()
+        stack.push_async_callback(self.mgr.stop)
+        await self.config_set("osd_scrub_interval", 3600.0)
+        await self.config_set("ec_offload_crc_device", True)
+        t1 = time.monotonic()
+        await self.client.command({
+            "prefix": "osd erasure-code-profile set", "name": "ecprof",
+            "profile": {"plugin": "cuda", "k": str(self.k),
+                        "m": str(self.m), "device": self.device}})
+        await self.client.pool_create(self.POOL, pg_num=self.pg_num,
+                                      pool_type="erasure",
+                                      erasure_code_profile="ecprof")
+        self.io = self.client.ioctx(self.POOL)
+        clean_s = await self.wait_clean(t1)
+        sw = self.client.osdmap.get_pool(self.POOL).stripe_width
+        return {"boot_s": boot_s, "clean_s": clean_s,
+                "stripe_width": sw, "chunk": sw // self.k}
+
+    def shards(self) -> list[int]:
+        """The live workers' shard indices."""
+        return [i for i in range(1, self.procs + 1)
+                if self.pool.worker_alive(i)]
+
+    def hosted(self, shard: int) -> list[int]:
+        return sorted(o.whoami for o in self.osds if o.shard == shard)
+
+    async def config_set(self, key: str, value) -> None:
+        if self.pool is not None:
+            await self.pool.config_set(key, value)
+        else:
+            for osd in self.osds:
+                osd.config.set(key, value)
+
+    async def wait_reports(self, since: float, names) -> dict:
+        """Each daemon in `names`' state once the mgr holds a report of
+        it received after `since` (time.monotonic())."""
+        import asyncio
+        loop = asyncio.get_running_loop()
+        t0 = loop.time()
+        while True:
+            sts = {n: self.mgr.daemon_index.daemons.get(n) for n in names}
+            if all(st is not None and st.last_report_mono > since
+                   for st in sts.values()):
+                return sts
+            if loop.time() - t0 > self.TIMEOUT_S:
+                raise TimeoutError(f"no report since the mark from "
+                                   f"{[n for n, st in sts.items() if st is None or st.last_report_mono <= since]}")
+            await asyncio.sleep(0.05)
+
+    async def wait_clean(self, since: float) -> float:
+        """Seconds until every OSD reported (after `since`) each of its
+        PGs active (a primary) or a replica, pg_num primaries in all,
+        pg_num x (k+m) PG copies, none degraded or undersized: the
+        operator's view through the mgr, the one that reaches OSDs in
+        other processes."""
+        import asyncio
+        t0 = time.monotonic()
+        names = [f"osd.{i}" for i in range(self.n_osds)]
+        while True:
+            hms = [st.health_metrics for st in
+                   (await self.wait_reports(since, names)).values()]
+            states = [hm.get("pg_states") or {} for hm in hms]
+            if (sum(sum(s.values()) for s in states)
+                    == self.pg_num * self.n_osds
+                    and sum(s.get("active", 0) for s in states)
+                    == self.pg_num
+                    and all(set(s) <= {"active", "replica"} for s in states)
+                    and not any(hm.get("degraded_pgs")
+                                or hm.get("undersized_pgs") for hm in hms)):
+                return time.monotonic() - t0
+            if time.monotonic() - t0 > self.TIMEOUT_S:
+                raise TimeoutError(f"pool never clean: {states}")
+            since = time.monotonic()
+            await asyncio.sleep(0.05)
+
+    # -- traffic ---------------------------------------------------------------
+
+    async def _each(self, fn, oids) -> None:
+        import asyncio
+        sem = asyncio.Semaphore(self.inflight)
+
+        async def one(oid):
+            async with sem:
+                await fn(oid)
+        await asyncio.gather(*[one(oid) for oid in oids])
+
+    async def write_all(self, prefix: str = "") -> float:
+        t0 = time.perf_counter()
+        await self._each(lambda oid: self.io.write_full(
+            prefix + oid, self.data[oid]), self.data)
+        return time.perf_counter() - t0
+
+    async def read_all(self, prefix: str = "") -> float:
+        async def read(oid):
+            if await self.io.read(prefix + oid) != self.data[oid]:
+                raise AssertionError(f"{prefix + oid} read back differs")
+        t0 = time.perf_counter()
+        await self._each(read, self.data)
+        return time.perf_counter() - t0
+
+    async def scrub(self) -> dict:
+        """Deep scrub of every PG, on every primary, awaited: one OSD
+        after another, as on one loop (primaries of different processes
+        scrubbing at once cross their replicas' reservations, and each
+        crossing waits out the reservation timeout)."""
+        t0 = time.perf_counter()
+        results = {}
+        if self.pool is None:
+            for osd in self.osds:
+                results.update(await osd.scrub_all(deep=True))
+        else:
+            for i in self.shards():
+                results.update(await self.pool.call(
+                    i, {"prefix": "scrub", "deep": True}, timeout=150.0))
+        out = {"seconds": time.perf_counter() - t0, "pgs": len(results),
+               "errors": sum(r["errors"] for r in results.values()),
+               "repaired": sum(r["repaired"] for r in results.values())}
+        if (out["pgs"], out["errors"]) != (self.pg_num, 0):
+            raise AssertionError(f"deep scrub: {out}")
+        return out
+
+    # -- the device side of every process ------------------------------------
+
+    async def reset_launches(self) -> None:
+        if self.pool is None:
+            rs, crc = self.mods.rs_codec, self.mods.crc32c
+            rs.launches = crc.launches = rs.encode_local_launches = 0
+            return
+        for i in self.shards():
+            await self.pool.call(i, {"prefix": "device status",
+                                     "reset": True})
+
+    async def device_status(self) -> dict:
+        """{shard: the worker's `device status`} (launch counts, pinned
+        staging bytes, card memory of its context); shard 0 alone for
+        the one-loop baseline."""
+        if self.pool is None:
+            rs, crc = self.mods.rs_codec, self.mods.crc32c
+            return {0: {"launches": {
+                "gf_bitmatrix": rs.launches, "crc32c_blocks": crc.launches,
+                "gf_bitmatrix_csum": rs.encode_local_launches}}}
+        return {i: await self.pool.call(i, {"prefix": "device status"})
+                for i in self.shards()}
+
+    async def launches(self) -> dict:
+        st = await self.device_status()
+        return {kn: sum(s["launches"][kn] for s in st.values())
+                for kn in ("gf_bitmatrix", "crc32c_blocks",
+                           "gf_bitmatrix_csum")}
+
+    async def fallback_ops(self) -> dict:
+        """{shard: fallback_ops} of each process's offload service."""
+        if self.pool is None:
+            from ceph_tpu_torch import offload
+            return {0: offload.get_service().stats["fallback_ops"]}
+        return {i: (await self.osds[self.hosted(i)[0]].admin(
+            "ec offload status"))["fallback_ops"] for i in self.shards()}
+
+    async def device_busy(self, since: float) -> dict:
+        """{shard: offload_device_busy_seconds summed over the cards}
+        from the mgr's index, once per process (co-hosted OSDs report
+        one service), from reports received after `since`."""
+        reps = ({0: 0} if self.pool is None else
+                {i: self.hosted(i)[0] for i in self.shards()})
+        sts = await self.wait_reports(since, [f"osd.{w}"
+                                              for w in reps.values()])
+        return {i: sum(c.get("offload_device_busy_seconds", 0.0)
+                       for dev, c in sts[f"osd.{w}"].device_metrics.items()
+                       if dev != "host")
+                for i, w in reps.items()}
+
+    async def device_rows(self) -> dict:
+        """The exporter's /metrics, fetched over HTTP: the
+        ceph_offload_device_batches rows, {daemon: [device, ...]}."""
+        import asyncio
+        import re
+        reader, writer = await asyncio.open_connection(*self.mgr.exporter.addr)
+        writer.write(b"GET /metrics HTTP/1.0\r\n\r\n")
+        await writer.drain()
+        text = (await reader.read()).decode()
+        writer.close()
+        rows: dict[str, list] = {}
+        for daemon, dev in re.findall(
+                r'^ceph_offload_device_batches\{ceph_daemon="(osd\.\d+)",'
+                r'ceph_device="([^"]+)"\}', text, re.M):
+            rows.setdefault(daemon, []).append(dev)
+        return rows
+
+    # -- 15c and 15d ------------------------------------------------------------
+
+    async def health_check(self, code: str):
+        h = await self.client.command({"prefix": "health detail"})
+        return h["checks"].get(code)
+
+    async def fault_drill(self, shard: int) -> dict:
+        """One device failure armed for each device slot of one worker
+        (one on a card): its breakers trip, its OSDs run EC on the host
+        codec (equal bytes) and the mgr raises TPU_OFFLOAD_DEGRADED
+        naming them alone; the breakers' probes recover and the check
+        clears."""
+        import asyncio
+        code = "TPU_OFFLOAD_DEGRADED"
+        victims = {f"osd.{w}" for w in self.hosted(shard)}
+        await self.config_set("ec_offload_breaker_reset_s", 2.0)
+        base = await self.fallback_ops()
+        slots = len((await self.pool.call(
+            shard, {"prefix": "device status"}))["devices"])
+        armed = await self.pool.call(shard, {
+            "prefix": "inject", "whoami": self.hosted(shard)[0],
+            "what": "device", "count": slots})
+        t0 = time.perf_counter()
+        rounds, raised, named = 0, None, None
+        oids = sorted(self.data)[:self.inflight]
+        while raised is None:
+            if time.perf_counter() - t0 > self.TIMEOUT_S:
+                raise TimeoutError(f"{code} never raised")
+            prefix = f"fault{rounds}-"
+            await self._each(lambda oid: self.io.write_full(
+                prefix + oid, self.data[oid]), oids)
+            for oid in oids:
+                if await self.io.read(prefix + oid) != self.data[oid]:
+                    raise AssertionError(f"{prefix + oid} differs")
+            rounds += 1
+            await asyncio.sleep(2 * self.REPORT_PERIOD)
+            check = await self.health_check(code)
+            if check is not None:
+                raised = time.perf_counter() - t0
+                named = {d.split(":")[0] for d in check["detail"]}
+        if named != victims:
+            raise AssertionError(f"{code} names {sorted(named)}, the "
+                                 f"worker hosts {sorted(victims)}")
+        t1 = time.perf_counter()
+        while await self.health_check(code) is not None:
+            if time.perf_counter() - t1 > self.TIMEOUT_S:
+                raise TimeoutError(f"{code} never cleared")
+            # the breaker lets a probe batch through after its reset
+            # window: keep the worker's OSDs encoding
+            await self._each(lambda oid: self.io.write_full(
+                "probe-" + oid, self.data[oid]), oids[:4])
+            await asyncio.sleep(0.25)
+        after = await self.fallback_ops()
+        fell = {i: after[i] - base[i] for i in after}
+        if fell[shard] <= 0 or any(n for i, n in fell.items() if i != shard):
+            raise AssertionError(f"host fallbacks by worker: {fell}")
+        return {"shard": shard, "named": sorted(named), "armed": armed,
+                "rounds": rounds, "raised_s": raised,
+                "cleared_s": time.perf_counter() - t1, "fallback_ops": fell}
+
+    async def crash_drill(self, shard: int) -> dict:
+        """SIGKILL a worker that holds a CUDA context: its OSDs are marked
+        down, every object reads back degraded (K1 in the survivors),
+        and a respawned worker re-opens the card and rejoins; timed to a
+        clean pool and read back healthy."""
+        import asyncio
+        victims = self.hosted(shard)
+        if len(victims) > self.m - 1:
+            raise AssertionError(f"worker {shard} hosts {victims}: the pool "
+                                 f"would fall below min_size k+1")
+        await self.config_set("osd_heartbeat_grace", 2.0)
+        omap = self.mon.osdmon.osdmap
+        t0 = time.perf_counter()
+        pid = self.pool.worker_pid(shard)
+        await self.pool.inject_crash(shard)
+        while self.pool.worker_alive(shard):
+            if time.perf_counter() - t0 > self.TIMEOUT_S:
+                raise TimeoutError("the killed worker was never reaped")
+            await asyncio.sleep(0.05)
+        reaped_s = time.perf_counter() - t0
+        while any(omap.is_up(v) for v in victims):
+            if time.perf_counter() - t0 > self.TIMEOUT_S:
+                raise TimeoutError(f"osds {victims} never marked down")
+            await asyncio.sleep(0.05)
+        down_s = time.perf_counter() - t0
+        # the default grace again before the rejoin: the respawned OSDs
+        # and the recovery they start load every loop at once, and a
+        # tight grace then marks live OSDs down
+        await self.config_set("osd_heartbeat_grace", HB_GRACE_DEFAULT)
+        await self.reset_launches()
+        read_s = await self.read_all()
+        k1 = (await self.launches())["gf_bitmatrix"]
+        if k1 <= 0:
+            raise AssertionError("the degraded reads never launched K1")
+        t1 = time.perf_counter()
+        res = await self.pool.respawn(shard)
+        respawn_s = time.perf_counter() - t1
+        if sorted(o["whoami"] for o in res["osds"]) != victims:
+            raise AssertionError(f"respawn re-booted {res['osds']}")
+        since = time.monotonic()
+        while not all(omap.is_up(v) for v in victims):
+            if time.perf_counter() - t1 > self.TIMEOUT_S:
+                raise TimeoutError(f"osds {victims} never rejoined")
+            await asyncio.sleep(0.05)
+        clean_s = await self.wait_clean(since)
+        cards = (await self.pool.call(shard, {"prefix": "device status"})
+                 )["cuda"]
+        healthy_read_s = await self.read_all()
+        return {"shard": shard, "osds": victims, "pid": pid,
+                "new_pid": res["pid"], "reaped_s": reaped_s,
+                "down_s": down_s, "degraded_read_s": read_s,
+                "degraded_k1": k1, "respawn_s": respawn_s,
+                "clean_s": clean_s, "cards": cards,
+                "healthy_read_s": healthy_read_s}
+
+
+async def drive_procs(mods, device: str, procs: int, data: dict,
+                      widest: bool, sampler_cls, card_used) -> dict:
+    """15a on a fresh ProcCluster with `procs` workers; on the widest,
+    15b's two measures of the card's share over its writes, then 15c and
+    15d on the same cluster. `card_used()` is the card's used memory in
+    bytes (None on the CPU)."""
+    import contextlib
+    pc = ProcCluster(mods, device, procs, K, M, CLUSTER_PGS, data,
+                     CLUSTER_INFLIGHT)
+    used0 = card_used()
+    async with contextlib.AsyncExitStack() as stack:
+        out = {"procs": procs, "boot": await pc.boot(stack)}
+        used1 = card_used()
+        await pc.reset_launches()
+        busy0 = await pc.device_busy(time.monotonic()) if widest else None
+        sampler = sampler_cls() if widest else contextlib.nullcontext()
+        with sampler:
+            out["write_s"] = await pc.write_all()
+        if widest:
+            busy1 = await pc.device_busy(time.monotonic())
+            busy = sum(busy1[i] - busy0[i] for i in busy1)
+            out["share"] = {"smi_utilization": sampler.mean,
+                            "smi_samples": len(sampler.samples),
+                            "busy_s_by_shard": {
+                                str(i): busy1[i] - busy0[i] for i in busy1},
+                            "busy_s": busy,
+                            "busy_share": busy / out["write_s"]}
+        out["read_s"] = await pc.read_all()
+        out["scrub"] = await pc.scrub()
+        out["launches"] = await pc.launches()
+        out["fallback_ops"] = await pc.fallback_ops()
+        for kname in ("gf_bitmatrix", "crc32c_blocks"):
+            if out["launches"][kname] <= 0:
+                raise AssertionError(f"procs={procs} never launched {kname}")
+        if any(out["fallback_ops"].values()):
+            raise AssertionError(f"host fallbacks: {out['fallback_ops']}")
+        if procs:
+            st = await pc.device_status()
+            out["workers"] = {str(i): {"pid": s["pid"],
+                                       "devices": s["devices"],
+                                       "pinned_bytes": s["pinned_bytes"],
+                                       "cuda": s["cuda"]}
+                              for i, s in st.items()}
+            out["card_used_per_worker"] = (
+                (used1 - used0) / procs if used0 is not None else None)
+        if widest:
+            rows = await pc.device_rows()
+            out["device_rows"] = rows
+            if sorted(rows) != sorted(f"osd.{i}" for i in range(K + M)):
+                raise AssertionError(f"/metrics device rows: {rows}")
+            out["fault"] = await pc.fault_drill(PROC_FAULT_SHARD)
+            out["crash"] = await pc.crash_drill(procs)
+    return out
+
+
+def phase_stages(device: str, timeout_s: float = 600.0) -> dict:
+    """15e: the port's bench_driver --stage cluster_tpu and --stage
+    attribution on `device`, each a child process (its curves capped by
+    the stage's own knobs in its environment), as phase 11 runs its
+    stages: one JSON line each, exit 0 only when every key was
+    measured."""
+    import signal
+    stages = {}
+    env = dict(os.environ, **STAGE_KNOBS)
+    for stage in ("cluster_tpu", "attribution"):
+        t0 = time.perf_counter()
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "ceph_tpu_torch.tools.bench_driver",
+             "--stage", stage, "--device", device],
+            cwd=REPO, env=env, stdout=subprocess.PIPE,
+            stderr=subprocess.PIPE, text=True, start_new_session=True)
+        try:
+            stdout, stderr = proc.communicate(timeout=timeout_s)
+        except subprocess.TimeoutExpired:
+            # the stage's own workers are in its session: stop them too
+            os.killpg(proc.pid, signal.SIGKILL)
+            proc.communicate()
+            raise
+        wall = time.perf_counter() - t0
+        line = stdout.strip().splitlines()[-1] if stdout.strip() else ""
+        log(f"phase 15e: bench_driver --stage {stage} ({wall:.1f} s): "
+            f"{line}")
+        if proc.returncode != 0:
+            log(stderr[-4000:])
+            raise AssertionError(f"bench_driver --stage {stage} exited "
+                                 f"{proc.returncode}")
+        stages[stage] = {"wall_s": wall, "record": json.loads(line)}
+    return stages
+
+
+def phase_procs(torch, np, dev, smi: str, sampler_cls=SmiSampler,
+                objects: int = CLUSTER_OBJECTS,
+                obj_bytes: int = CLUSTER_OBJECT, stages: bool = True
+                ) -> dict:
+    """Phase 15 on `dev`: 15a over PROC_COUNTS capped at this machine's
+    cores, 15b-15d on the widest, 15e the two cluster bench stages."""
+    import asyncio
+    mods = proc_modules()
+    cores = len(os.sched_getaffinity(0))
+    counts = [n for n in PROC_COUNTS if n <= cores]
+    if counts[-1] < PROC_CRASH_SHARD:
+        raise AssertionError(f"{cores} cores: 15d needs {PROC_CRASH_SHARD} "
+                             f"workers")
+    blob = np.random.default_rng(CLUSTER_SEED).integers(
+        0, 256, objects * obj_bytes, dtype=np.uint8)
+    data = {f"obj{i:03d}": blob[i * obj_bytes:(i + 1) * obj_bytes].tobytes()
+            for i in range(objects)}
+    device = "cuda" if dev.type == "cuda" else "cpu"
+
+    def card_used():
+        if dev.type != "cuda":
+            return None
+        free, total = torch.cuda.mem_get_info(dev)
+        return total - free
+    out = {"cores": cores, "counts": counts, "objects": objects,
+           "object_bytes": obj_bytes, "runs": {}}
+    for n in counts:
+        t0 = time.perf_counter()
+        r = asyncio.run(asyncio.wait_for(drive_procs(
+            mods, device, n, data, n == counts[-1], sampler_cls, card_used),
+            600))
+        r["phase_s"] = time.perf_counter() - t0
+        out["runs"][str(n)] = r
+        log_procs_run(r, objects * obj_bytes, smi)
+    # 15a's launches of every run, and 15d's degraded reads
+    out["launches"] = {kn: sum(r["launches"][kn] for r in out["runs"].values())
+                       for kn in ("gf_bitmatrix", "crc32c_blocks",
+                                  "gf_bitmatrix_csum")}
+    out["launches"]["gf_bitmatrix"] += \
+        out["runs"][str(counts[-1])]["crash"]["degraded_k1"]
+    if stages:
+        out["stages"] = phase_stages(device)
+    out["card"] = smi
+    return out
+
+
+def log_procs_run(r: dict, total: int, smi: str) -> None:
+    n = r["procs"]
+    b = r["boot"]
+    where = "one loop" if n == 0 else f"{n} worker process(es)"
+    log(f"phase 15a [{smi}]: reactor_procs={n} ({where}): booted in "
+        f"{b['boot_s']:.2f} s, pool clean {b['clean_s']:.2f} s later "
+        f"({b['chunk']}-byte chunks); write {r['write_s']:.3f} s "
+        f"({total / r['write_s'] / 1e9:.3f} GB/s of client bytes), read "
+        f"{r['read_s']:.3f} s ({total / r['read_s'] / 1e9:.3f} GB/s), every "
+        f"object equal; deep scrub of {r['scrub']['pgs']} PGs "
+        f"{r['scrub']['seconds']:.2f} s, {r['scrub']['errors']} errors; "
+        f"fallback_ops by process {r['fallback_ops']}; launches summed "
+        f"over processes K1 {r['launches']['gf_bitmatrix']}, K2 "
+        f"{r['launches']['crc32c_blocks']}, K3 "
+        f"{r['launches']['gf_bitmatrix_csum']} (host clock)")
+    for i, w in sorted(r.get("workers", {}).items()):
+        log(f"phase 15a [{smi}]: worker {i} pid {w['pid']} on "
+            f"{w['devices']}: pinned staging {w['pinned_bytes'] / 2**20:.1f}"
+            f" MiB, card memory of its context {w['cuda']}")
+    if r.get("card_used_per_worker") is not None:
+        log(f"phase 15a [{smi}]: card memory used per worker (the card's "
+            f"used memory after boot minus before, over {n}): "
+            f"{r['card_used_per_worker'] / 2**20:.0f} MiB")
+    if "share" in r:
+        s = r["share"]
+        smi_u = "n/a" if s["smi_utilization"] is None \
+            else f"{s['smi_utilization'] * 100:.1f}%"
+        log(f"phase 15b [{smi}]: the card's share over the widest write: "
+            f"nvidia-smi utilization.gpu {smi_u} (mean of "
+            f"{s['smi_samples']} samples); the services' "
+            f"offload_device_busy_seconds from the mgr, once per worker, "
+            f"{s['busy_s']:.4f} s of {r['write_s']:.3f} s "
+            f"({s['busy_share'] * 100:.2f}%; by worker "
+            f"{ {k: round(v, 4) for k, v in s['busy_s_by_shard'].items()} }"
+            f"); neither is a CUPTI union of the card's kernels")
+    if "fault" in r:
+        f = r["fault"]
+        log(f"phase 15c [{smi}]: /metrics device rows {r['device_rows']}; "
+            f"one device failure armed in worker {f['shard']}: "
+            f"TPU_OFFLOAD_DEGRADED raised after {f['raised_s']:.2f} s "
+            f"naming {f['named']} alone, writes equal on the host codec "
+            f"({f['rounds']} rounds), cleared {f['cleared_s']:.2f} s later "
+            f"by the breaker's probe; host fallbacks by worker "
+            f"{f['fallback_ops']}")
+    if "crash" in r:
+        c = r["crash"]
+        log(f"phase 15d [{smi}]: worker {c['shard']} (pid {c['pid']}, "
+            f"osds {c['osds']}) SIGKILLed: reaped {c['reaped_s']:.2f} s, "
+            f"marked down {c['down_s']:.2f} s; every object read degraded "
+            f"in {c['degraded_read_s']:.3f} s ({total / c['degraded_read_s'] / 1e9:.3f} "
+            f"GB/s, K1 {c['degraded_k1']} in the survivors); respawned "
+            f"(pid {c['new_pid']}, card {c['cards']}) in "
+            f"{c['respawn_s']:.2f} s, clean {c['clean_s']:.2f} s later, "
+            f"read back healthy in {c['healthy_read_s']:.3f} s")
+    log(f"phase 15a [{smi}]: reactor_procs={n}: {r['phase_s']:.1f} s")
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--json", help="also write all measurements here")
@@ -3063,6 +3673,14 @@ def main() -> int:
             raise AssertionError(f"the cluster never launched {kname}")
     report["cluster"] = cl
     log(f"phase 14: {time.perf_counter() - t0:.1f} s")
+
+    # -- phase 15: the pool's OSDs in worker processes, the mgr, the stages --
+    t0 = time.perf_counter()
+    pr = phase_procs(torch, np, dev, smi)
+    report["procs"] = pr
+    log(f"phase 15 [{smi}]: launches summed over every process of 15a and "
+        f"15d's degraded reads: {pr['launches']}; {time.perf_counter() - t0:.1f}"
+        f" s")
     plugin_launches = {kname: sum(plugins[pname]["launches"][kname]
                                   for pname, _ in PLUGINS)
                        for kname in ("gf_bitmatrix", "crc32c_blocks")}
@@ -3077,12 +3695,14 @@ def main() -> int:
          "matched": k1_err == 0,
          "launches": svc_launches["gf_bitmatrix"]
          + plugin_launches["gf_bitmatrix"] + rx["launches"]["gf_bitmatrix"]
-         + st["launches"]["gf_bitmatrix"] + cl["launches"]["gf_bitmatrix"],
+         + st["launches"]["gf_bitmatrix"] + cl["launches"]["gf_bitmatrix"]
+         + pr["launches"]["gf_bitmatrix"],
          "launches_by_path": {"service": svc_launches["gf_bitmatrix"],
                               "plugins": plugin_launches["gf_bitmatrix"],
                               "reactor": rx["launches"]["gf_bitmatrix"],
                               "store_path": st["launches"]["gf_bitmatrix"],
-                              "cluster": cl["launches"]["gf_bitmatrix"]},
+                              "cluster": cl["launches"]["gf_bitmatrix"],
+                              "procs": pr["launches"]["gf_bitmatrix"]},
          "max_abs_err": k1_err, "tolerance": 0, "ms": k1_ms, "kernel_ms": k1_ms,
          "isolated_ms": k1_iso_ms,
          "plain_ms": k1_plain_ms, "bound_ms": k1_bound, "bound_by": k1_by,
@@ -3094,12 +3714,14 @@ def main() -> int:
          "matched": k2_err == 0,
          "launches": svc_launches["crc32c_blocks"]
          + plugin_launches["crc32c_blocks"] + rx["launches"]["crc32c_blocks"]
-         + st["launches"]["crc32c_blocks"] + cl["launches"]["crc32c_blocks"],
+         + st["launches"]["crc32c_blocks"] + cl["launches"]["crc32c_blocks"]
+         + pr["launches"]["crc32c_blocks"],
          "launches_by_path": {"service": svc_launches["crc32c_blocks"],
                               "plugins": plugin_launches["crc32c_blocks"],
                               "reactor": rx["launches"]["crc32c_blocks"],
                               "store_path": st["launches"]["crc32c_blocks"],
-                              "cluster": cl["launches"]["crc32c_blocks"]},
+                              "cluster": cl["launches"]["crc32c_blocks"],
+                              "procs": pr["launches"]["crc32c_blocks"]},
          "store_path_compare": st["k2_compare"],
          "max_abs_err": k2_err, "tolerance": 0, "ms": k2_ms, "kernel_ms": k2_ms,
          "isolated_ms": k2_iso_ms,
@@ -3114,11 +3736,13 @@ def main() -> int:
          "matched": k3_err == 0,
          "launches": svc_launches["gf_bitmatrix_csum"]
          + rx["launches"]["gf_bitmatrix_csum"]
-         + cl["launches"]["gf_bitmatrix_csum"],
+         + cl["launches"]["gf_bitmatrix_csum"]
+         + pr["launches"]["gf_bitmatrix_csum"],
          "launches_by_path": {
              "service": svc_launches["gf_bitmatrix_csum"],
              "reactor": rx["launches"]["gf_bitmatrix_csum"],
-             "cluster": cl["launches"]["gf_bitmatrix_csum"]},
+             "cluster": cl["launches"]["gf_bitmatrix_csum"],
+             "procs": pr["launches"]["gf_bitmatrix_csum"]},
          "max_abs_err": k3_err, "tolerance": 0, "ms": k3_ms, "kernel_ms": k3_ms,
          "isolated_ms": k3_iso_ms,
          "plain_ms": k3_plain_ms, "bound_ms": k3_bound, "bound_by": k3_by,
@@ -3131,7 +3755,7 @@ def main() -> int:
             f"alone on an idle stream {kr['isolated_ms']:.4f} ms), bound {kr['bound_ms']:.4f} "
             f"ms by {kr['bound_by']} ({kr['bound_ms'] / kr['ms'] * 100:.1f}% "
             f"of it), plain {kr['plain_ms']:.3f} ms, launches on the main "
-            f"paths (phases 7, 9, 12, 13 and 14) {kr['launches']}; no single PyTorch call "
+            f"paths (phases 7, 9, 12, 13, 14 and 15) {kr['launches']}; no single PyTorch call "
             f"computes this function, so library_ms is null")
     report["kernels"] = kernels
     report["total_s"] = time.perf_counter() - t_start

@@ -15,9 +15,11 @@ DEVICE_KEYS = ("platform", "backend_init_s", "tpu_encode", "tpu_decode",
                "device_peak_gbps", "tpu_encode_roofline_pct", "tpu_crc32c",
                "link_h2d_cold_gbps", "link_h2d_gbps", "tpu_encode_host",
                "host_encode_link_efficiency", "scalar_encode", "elapsed_s")
-#: stage_cpu's, without the messenger microbench's msgr_* keys
+#: stage_cpu's, with the messenger microbenches' msgr_* keys
 CPU_KEYS = ("cpu_native_encode", "cpu_native_decode", "cpu_numpy_encode",
-            "cpu_crc32c")
+            "cpu_crc32c", "msgr_frames_per_s_native",
+            "msgr_frames_per_s_python", "msgr_frame_native_speedup",
+            "msgr_saturated_frames_per_write", "msgr_saturated_msgs_per_s")
 PROBE_KEYS = ("platform", "device_count", "init_s")
 #: _mesh_scaling_body's
 SCALING_KEYS = ("device_scaling_gb_s", "scaling_devices",

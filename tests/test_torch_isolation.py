@@ -44,15 +44,34 @@ CLUSTER_COPIES = (
     "ceph_tpu_torch.cls.lock", "ceph_tpu_torch.osd.pg",
     "ceph_tpu_torch.osd.ec_backend", "ceph_tpu_torch.osd.scrub",
     "ceph_tpu_torch.osd.daemon", "ceph_tpu_torch.rados",
-    "ceph_tpu_torch.rados.client", "ceph_tpu_torch.rados.aio")
+    "ceph_tpu_torch.rados.client", "ceph_tpu_torch.rados.aio",
+    # the process half of the reactor, the cluster tools and the mgr
+    "ceph_tpu_torch.utils.reactor", "ceph_tpu_torch.utils.reactor_worker",
+    "ceph_tpu_torch.tools.cluster_boot", "ceph_tpu_torch.tools.rados_bench",
+    "ceph_tpu_torch.mgr.history", "ceph_tpu_torch.mgr.exporter",
+    "ceph_tpu_torch.mgr.daemon")
 
 #: the device seams, where a copy may differ from the reference: module
 #: -> (functions, imports the copy adds)
 SEAMS = {
     "ceph_tpu_torch.osd.daemon": (
-        {"OSD.__init__", "OSD._service_devices", "OSD.start"},
+        {"OSD.__init__", "OSD.start"},
         {"from ceph_tpu_torch import device as _device"}),
     "ceph_tpu_torch.osd.ec_backend": ({"ECBackend.__init__"}, set()),
+    # the spawn line names the port's worker; a boot carries its device
+    "ceph_tpu_torch.utils.reactor": (
+        {"ProcShardPool._spawn", "ProcShardPool.boot_osd"}, set()),
+    # the OSD's device, and the verbs that read the worker's device side
+    # and scrub its OSDs
+    "ceph_tpu_torch.utils.reactor_worker": (
+        {"_Worker.__init__", "_Worker._boot_osd", "_Worker._service",
+         "_Worker._offload_status", "_Worker._device_status",
+         "_Worker._scrub", "_Worker._pinned_bytes"}, set()),
+    # the OSDs' device, the parent's kernel build, DeviceUnavailable
+    "ceph_tpu_torch.tools.cluster_boot": (
+        {"ephemeral_cluster"},
+        {"from ceph_tpu_torch.device import DeviceUnavailable"}),
+    "ceph_tpu_torch.tools.rados_bench": ({"_main", "main"}, set()),
 }
 
 
@@ -100,8 +119,7 @@ def _shape(path: str, rename: bool) -> tuple[dict, set]:
     return defs, imports
 
 
-@pytest.mark.parametrize("name", [n for n in CLUSTER_COPIES
-                                  if n != "ceph_tpu_torch.mgr"])
+@pytest.mark.parametrize("name", CLUSTER_COPIES)
 def test_copy_is_the_reference_but_for_names_and_seams(name):
     """Each copied module is AST-equal to the reference's once the
     package is renamed and docstrings are dropped, except in the device
@@ -119,8 +137,22 @@ def test_copy_is_the_reference_but_for_names_and_seams(name):
 
 
 def test_mgr_exports_only_the_client():
+    """The port's mgr exports what the reference's does (the client
+    alone until the daemon, the exporter and the history were ported)."""
+    from ceph_tpu import mgr as ref_mgr
     from ceph_tpu_torch import mgr
-    assert mgr.__all__ == ["MgrClient"]
+    assert mgr.__all__ == ref_mgr.__all__
+    for name in mgr.__all__:
+        assert getattr(mgr, name).__module__.startswith("ceph_tpu_torch.")
+
+
+def test_worker_spawn_line_names_the_port():
+    """The worker module is a string constant, out of reach of an import
+    rename: the port's pool spawns the port's worker."""
+    src = open(_source_path("ceph_tpu_torch.utils.reactor",
+                            "ceph_tpu_torch")).read()
+    assert '"ceph_tpu_torch.utils.reactor_worker"' in src
+    assert '"ceph_tpu.utils.reactor_worker"' not in src
 
 
 def test_every_module_is_listed():
@@ -237,6 +269,17 @@ def _osd_start():
     return asyncio.run(OSD(0, [("127.0.0.1", 1)]).start())
 
 
+def _cluster():
+    import asyncio
+
+    from ceph_tpu_torch.tools.cluster_boot import ephemeral_cluster
+
+    async def boot():
+        async with ephemeral_cluster(1, prefix="iso-"):
+            pass
+    return asyncio.run(asyncio.wait_for(boot(), 30))
+
+
 def _entry_points():
     from ceph_tpu_torch import device
     from ceph_tpu_torch.parallel import mesh
@@ -274,6 +317,9 @@ def _entry_points():
         "bench_driver probe": lambda: bench_driver.stage_probe(),
         "offload service": _new_service,
         "OSD.start": _osd_start,
+        "ephemeral_cluster": _cluster,
+        "bench_driver cluster_tpu": lambda: bench_driver.stage_cluster_tpu(),
+        "bench_driver attribution": lambda: bench_driver.stage_attribution(),
         "make_mesh": lambda: mesh.make_mesh(),
         "mesh_storage_impl": lambda: mesh.mesh_storage_impl(
             mesh.make_mesh(), 4, 2),
