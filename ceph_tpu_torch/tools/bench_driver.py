@@ -35,6 +35,14 @@ Stages:
   mesh_scaling  the sharded stripe encode (the service's oversized-batch
                 path) over meshes of 1, 2 and 4 slots of one device,
                 plus bit-identity of the widest against one slot.
+  cluster       the `rados bench` analog: a replicated pool and a
+                jerasure k=2 m=2 pool (on --device) of 4 OSDs, 8 writers
+                then 8 readers of 256 KiB objects for 4 s each
+                (cluster_rep_* / cluster_ec_* MB/s and p99 ms), then a
+                fresh vstart cluster of 3 OSDs with a mgr, an MDS and a
+                gateway whose report fan-in is read back (`health`: the
+                mon's status and checks, the report ages, the daemons
+                that /metrics labels).
   cluster_tpu   an EC pool (plugin cuda k=8 m=3 on --device) in a booted
                 cluster of 11 OSDs: inline vs offloaded one-stripe
                 writes (cluster_ec_tpu_*), the messenger's frames per
@@ -177,7 +185,9 @@ def stage_probe(device: str | None = None) -> dict:
     return {"platform": "gpu" if dev.type == "cuda" else "cpu",
             "device_count": torch.cuda.device_count()
             if dev.type == "cuda" else 1,
-            "init_s": round(time.perf_counter() - t0, 4)}
+            # to the microsecond: a CPU already in use answers in tens
+            # of microseconds, which four places would read as 0
+            "init_s": round(time.perf_counter() - t0, 6)}
 
 
 def stage_device(device: str | None = None) -> dict:
@@ -187,7 +197,7 @@ def stage_device(device: str | None = None) -> dict:
     dev = _device.resolve(device)
     torch.zeros(1, device=dev)
     _sync(dev)
-    init_s = round(time.perf_counter() - t0, 4)
+    init_s = round(time.perf_counter() - t0, 6)      # as stage_probe's
     shapes = DEVICE_SHAPES[dev.type]
     log(f"device up: {dev} ({init_s}s)")
     results: dict = {"platform": "gpu" if dev.type == "cuda" else "cpu",
@@ -562,6 +572,92 @@ async def _ec_pool(client, name: str, pg_num: int, k: int, m: int,
     await client.pool_create(name, pg_num=pg_num, pool_type="erasure",
                              erasure_code_profile=profile)
     return client.ioctx(name)
+
+
+def stage_cluster(device: str | None = None) -> dict:
+    """In-situ cluster throughput (the `rados bench` analog): N
+    concurrent writers/readers through the full client->mon->osd->PG->
+    backend stack on localhost sockets, replicated AND EC pools, the
+    OSDs and the EC profile on `device`; then one observability pass
+    over a fresh vstart cluster with a mgr, an MDS and a gateway. A
+    failed probe raises. The record keeps the reference's key names."""
+    import asyncio
+
+    device, _platform = _cluster_device(device)
+    results: dict = {}
+
+    async def body():
+        import argparse
+        from ceph_tpu_torch.tools.rados_bench import _main
+        for pool_type, k, m in (("replicated", 0, 0), ("erasure", 2, 2)):
+            args = argparse.Namespace(
+                seconds=4.0, concurrency=8, object_size=256 * 1024,
+                pool_type=pool_type, plugin="jerasure", k=k, m=m,
+                osds=4, backend="memstore", device=device)
+            out = await _main(args)
+            key = "cluster_rep" if pool_type == "replicated" \
+                else "cluster_ec"
+            results[f"{key}_write_mb_s"] = out["write"]["mb_per_s"]
+            results[f"{key}_read_mb_s"] = out["read"]["mb_per_s"]
+            results[f"{key}_write_p99_ms"] = out["write"]["lat_p99_ms"]
+            results[f"{key}_read_p99_ms"] = out["read"]["lat_p99_ms"]
+            log(f"{key}: write {out['write']['mb_per_s']} MB/s "
+                f"read {out['read']['mb_per_s']} MB/s")
+
+    async def probe_health():
+        """One observability pass: boot a full cluster (mgr + mds +
+        rgw), let the report fan-in converge, then record the mon
+        health and the exporter's per-daemon labels."""
+        import re
+        import tempfile
+
+        from ceph_tpu_torch.tools.vstart import VCluster
+        with tempfile.TemporaryDirectory(prefix="bench-health-") as base:
+            c = VCluster(base, n_mons=1, n_osds=3, with_mgr=True,
+                         with_mds=True, with_rgw=True, device=device)
+            try:
+                await c.start()
+                loop = asyncio.get_running_loop()
+                deadline = loop.time() + 30
+                want = {"osd", "mon", "mds", "rgw"}
+                while want - {st.service for st in
+                              c.mgr.daemon_index.daemons.values()}:
+                    if loop.time() > deadline:
+                        break
+                    await asyncio.sleep(0.25)
+                health = await c.mgr.mon_command({"prefix": "health"})
+                reader, writer = await asyncio.open_connection(
+                    *c.mgr.exporter.addr)
+                writer.write(b"GET /metrics HTTP/1.0\r\n\r\n")
+                await writer.drain()
+                blob = await reader.read()
+                writer.close()
+                text = blob.split(b"\r\n\r\n", 1)[1].decode()
+                results["health"] = {
+                    # the probe boots its own full cluster (rados_bench
+                    # tears its benchmark cluster down internally): this
+                    # records the observability plane converging, not
+                    # the bench cluster's load response
+                    "scope": "post-bench observability probe "
+                             "(fresh 3-osd + mgr/mds/rgw cluster)",
+                    "status": health.get("status"),
+                    "checks": sorted(health.get("checks", {})),
+                    "daemon_report_ages":
+                        c.mgr.daemon_index.report_ages(),
+                    "metric_daemons": sorted(
+                        set(re.findall(r'ceph_daemon="([^"]+)"', text))),
+                    "metric_lines": sum(
+                        1 for ln in text.splitlines()
+                        if ln.startswith("ceph_")),
+                }
+                log(f"health: {results['health']['status']} "
+                    f"checks={results['health']['checks']} "
+                    f"daemons={results['health']['metric_daemons']}")
+            finally:
+                await c.stop()
+    asyncio.run(asyncio.wait_for(body(), 300))
+    asyncio.run(asyncio.wait_for(probe_health(), 120))
+    return results
 
 
 def stage_cluster_tpu(device: str | None = None) -> dict:
@@ -1150,7 +1246,7 @@ def main(argv: list[str] | None = None) -> int:
     p = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     p.add_argument("--stage", required=True,
                    choices=["cpu", "probe", "device", "mesh_scaling",
-                            "cluster_tpu", "attribution"])
+                            "cluster", "cluster_tpu", "attribution"])
     p.add_argument("--device", default=_device.DEFAULT_DEVICE,
                    help="cuda (default), cuda:N or cpu")
     args = p.parse_args(argv)
@@ -1160,6 +1256,8 @@ def main(argv: list[str] | None = None) -> int:
         out = stage_probe(args.device)
     elif args.stage == "device":
         out = stage_device(args.device)
+    elif args.stage == "cluster":
+        out = stage_cluster(args.device)
     elif args.stage == "cluster_tpu":
         out = stage_cluster_tpu(args.device)
     elif args.stage == "attribution":

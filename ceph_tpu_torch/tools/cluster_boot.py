@@ -81,6 +81,19 @@ class WorkerOSDRef:
         return st["osds"][str(self.whoami)]
 
 
+async def boot_worker_osd(proc_pool, whoami: int, mon_addrs,
+                          device: str) -> dict:
+    """`proc_pool.boot_osd` on `device`; DeviceUnavailable when the
+    worker cannot open it (the worker's error crosses as a
+    RuntimeError naming it)."""
+    try:
+        return await proc_pool.boot_osd(whoami, mon_addrs, device=device)
+    except RuntimeError as e:
+        if DeviceUnavailable.__name__ in str(e):
+            raise DeviceUnavailable(str(e)) from e
+        raise
+
+
 @contextlib.asynccontextmanager
 async def ephemeral_cluster(
         n_osds: int, prefix: str = "ceph-tpu-",
@@ -149,13 +162,7 @@ async def ephemeral_cluster(
         mon_addrs = list(monmap.mons.values())
         for i in range(n_osds):
             if proc_pool is not None:
-                try:
-                    res = await proc_pool.boot_osd(i, mon_addrs,
-                                                   device=device)
-                except RuntimeError as e:
-                    if DeviceUnavailable.__name__ in str(e):
-                        raise DeviceUnavailable(str(e)) from e
-                    raise
+                res = await boot_worker_osd(proc_pool, i, mon_addrs, device)
                 osds.append(WorkerOSDRef(proc_pool, i, res["shard"],
                                          tuple(res["addr"])))
                 continue

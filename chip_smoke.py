@@ -117,8 +117,8 @@ comes out against the host codec:
               open the card (`ephemeral_cluster(reactor_procs=N)`, OSDs
               on MemStore, a MgrDaemon on this loop): 15a the process
               curve, reactor_procs 0 (every OSD on this loop), 1, 2 and 4
-              (capped at the cores): boot, write and read GB/s of client
-              bytes, every object equal, a deep scrub of every PG with 0
+              (capped at the cores): boot, 32 objects of 4 MiB written and
+              read (GB/s of client bytes), every object equal, a deep scrub of every PG with 0
               errors, fallback_ops 0 in every process (`ec offload
               status` through each worker's control channel), K1 and K2
               launches summed over the processes, pinned staging bytes
@@ -135,7 +135,33 @@ comes out against the host codec:
               through K1 in the survivors, the worker respawned (it
               re-opens the card) and the pool clean again; 15e the
               bench driver's cluster_tpu and attribution stages on the
-              card, each a child process.
+              card, each a child process;
+  phase 16    the access layers with their data in EC pools: a vstart
+              cluster (VCluster: one mon, 11 OSDs on MemStore with
+              device=cuda, a mgr and its gateway rgw.0) with one profile
+              plugin=cuda k=8 m=3 and three EC data pools made by `osd
+              pool create <name> 32 erasure`, the device crc on; 16a an
+              RBD image (`rbd create --data-pool rbd_ec`, 4 MiB objects):
+              128 MiB in 32 object-aligned writes, 16 in flight (the card
+              traced by torch.profiler), 512 random 4 KiB overwrites (the
+              EC read-modify-write path), the range read back against a
+              model; 16b an S3 bucket on a second gateway whose data pool
+              is rgw_ec: 16 PUTs of 4 MiB over HTTP, 16 connections, a
+              multipart upload of three 5 MiB parts, every object and one
+              range read back, every ETag the crc32c of its bytes; 16c a
+              CephFS (an MDS on cephfs_metadata with data pool fs_ec, 4
+              MiB stripes): a 64 MiB file in 4 MiB writes, 256 random 4
+              KiB overwrites, the file read back, an 8 MiB file unlinked
+              and purged; 16d every shard on every OSD equal to the host
+              codec's encode of the models; 16f the mgr's daemon index
+              (osd, mon, mds, rgw), its /metrics rows for the MDS, both
+              gateways and one ceph_device row per OSD, and health, read
+              while every OSD is up; 16e osd.5 stopped, marked down, and
+              every image, S3 and file byte read degraded through K1;
+              16g the bench driver's --stage cluster as a child process.
+              Per step: seconds, GB/s of client bytes (IOPS for the
+              overwrites), device batches and riders a batch, K1-K3
+              launches; no batch may reach the host fallback.
 
 Phase 1 also holds K1 at the plugins' shapes: (1,k,N) -> r for k 3, 6,
 8, 12, r 1-4 and N clay's plane batches and ragged 1 MiB.
@@ -148,7 +174,7 @@ Output: progress lines, the card's name and power limit as nvidia-smi
 reports them, a JSON line {"kernels": [...]}, and last
 {"ok": true, "device": {...}}. --json also writes every measurement to
 PATH (phase 13's under `store_path`, phase 14's under `cluster`, phase
-15's under `procs`).
+15's under `procs`, phase 16's under `access`).
 """
 from __future__ import annotations
 
@@ -184,6 +210,7 @@ CLUSTER_OBJECT = 4 << 20        # phase 14: RBD's and CephFS's object size
 CLUSTER_INFLIGHT = 16           # phase 14: ops in flight (rados bench -t)
 CLUSTER_SEED = 42               # phase 14: the objects' bytes
 PROC_COUNTS = (0, 1, 2, 4)      # phase 15a: reactor_procs (0: one loop)
+PROC_OBJECTS = 32               # phase 15a: objects (phase 14's halved)
 PROC_FAULT_SHARD = 1            # phase 15c: the worker whose card call fails
 PROC_CRASH_SHARD = 4            # phase 15d: the worker killed (2 OSDs of 11)
 HB_GRACE_DEFAULT = 3.0          # phase 15d: osd_heartbeat_grace's default
@@ -296,16 +323,23 @@ def profiled_ms(torch, fn, kernel: str, reps: int = 20) -> float | None:
 
 def device_ops_per_call(torch, fn, reps: int = 10) -> tuple[float, list]:
     """Device operations (kernels, memsets, copies) the profiler's trace
-    of the card holds per call of fn, and their names."""
+    of the card holds per call of fn, and their names. A trace that
+    holds no device activity at all is taken again, up to three times:
+    a profiler session started right after another has come back empty
+    on the card while the calls in it ran (the kernel's results are
+    held against its plain version elsewhere)."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    ops = [e for e in prof.events()
-           if e.device_type == torch.autograd.DeviceType.CUDA]
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        ops = [e for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+        if ops:
+            break
     return len(ops) / reps, sorted({e.name for e in ops})
 
 
@@ -2055,10 +2089,16 @@ class ClusterPass:
     host is its own (`host{osd}`), so each PG's acting set holds every
     OSD. The device crc is on (`ec_offload_crc_device`, set through
     osd.0's config), so the shard csums and deep scrub's digests go to
-    the card as the encodes and decodes do."""
+    the card as the encodes and decodes do. The client waits for an op
+    as librados does (`rados_osd_op_timeout` 0 upstream) and resends it
+    only on a map change or a fault: `RadosClient`'s 5 s attempt is
+    shorter than a 4 MiB write's wait behind 15 others on one loop over
+    BlueStore, and a write resent before it commits runs again at its
+    primary, behind the first."""
 
     POOL = "ecpool"
     TIMEOUT_S = 120.0
+    OP_TIMEOUT_S = 60.0     # the client's op and attempt timeout
 
     def __init__(self, mods, root: str, device: str, k: int, m: int,
                  pg_num: int, objects: int, obj_bytes: int, inflight: int,
@@ -2109,6 +2149,8 @@ class ClusterPass:
         for i in range(self.n_osds):
             await self.start_osd(i)
         self.client = self.mods.RadosClient(self.mon_addrs)
+        self.client.OP_TIMEOUT = self.OP_TIMEOUT_S
+        self.client.ATTEMPT_TIMEOUT = self.OP_TIMEOUT_S
         await self.client.connect()
         await self.client.command({
             "prefix": "osd erasure-code-profile set", "name": "ecprof",
@@ -2166,7 +2208,9 @@ class ClusterPass:
                 "gf_bitmatrix_csum": rs.encode_local_launches,
                 "batches": self.svc.stats["batches"],
                 "riders": self.svc.stats["batched_ops"],
-                "fallback_ops": self.svc.stats["fallback_ops"]}
+                "fallback_ops": self.svc.stats["fallback_ops"],
+                # a tid per attempt, a reqid per op
+                "resends": self.client._tid - self.client._reqseq}
 
     async def _step(self, fn) -> dict:
         """Run `fn`, a coroutine function; its seconds, and what the
@@ -2183,27 +2227,35 @@ class ClusterPass:
         out["riders_per_batch"] = (d["riders"] / d["batches"]
                                    if d["batches"] else None)
         out["fallback_ops"] = d["fallback_ops"]
+        out["resends"] = d["resends"]
         return out
 
-    async def _each(self, fn) -> None:
+    async def _each(self, fn) -> float:
+        """`fn` on every object, `inflight` at once; the slowest call's
+        seconds."""
         import asyncio
         sem = asyncio.Semaphore(self.inflight)
 
         async def one(oid):
             async with sem:
+                t0 = time.perf_counter()
                 await fn(oid)
-        await asyncio.gather(*[one(oid) for oid in self.data])
+                return time.perf_counter() - t0
+        return max(await asyncio.gather(*[one(oid) for oid in self.data]))
 
     async def write_all(self) -> dict:
-        await self._each(lambda oid: self.io.write_full(oid, self.data[oid]))
-        return {"bytes": len(self.data) * self.obj_bytes}
+        slowest = await self._each(
+            lambda oid: self.io.write_full(oid, self.data[oid]))
+        return {"bytes": len(self.data) * self.obj_bytes,
+                "slowest_op_s": slowest}
 
     async def read_all(self) -> dict:
         async def read(oid):
             if await self.io.read(oid) != self.data[oid]:
                 raise AssertionError(f"{oid} read back differs")
-        await self._each(read)
-        return {"bytes": len(self.data) * self.obj_bytes}
+        slowest = await self._each(read)
+        return {"bytes": len(self.data) * self.obj_bytes,
+                "slowest_op_s": slowest}
 
     async def kill(self, victim: int) -> dict:
         """Stop `victim`, wait until every survivor's map has it down,
@@ -2415,7 +2467,9 @@ def log_cluster(r: dict, smi: str) -> None:
             f"{'n/a' if rpb is None else f'{rpb:.2f}'} riders a batch; "
             f"launches K1 {s['launches']['gf_bitmatrix']}, K2 "
             f"{s['launches']['crc32c_blocks']}, K3 "
-            f"{s['launches']['gf_bitmatrix_csum']}")
+            f"{s['launches']['gf_bitmatrix_csum']}; client resends "
+            f"{s['resends']}" + (f", slowest op {s['slowest_op_s']:.3f} s"
+                                 if "slowest_op_s" in s else ""))
     b = r["boot"]
     log(f"phase 14 [{smi}]: 1 mon + {K + M} OSDs booted, pool "
         f"{ClusterPass.POOL} pg_num {CLUSTER_PGS} (plugin cuda k={K} m={M}, "
@@ -2706,19 +2760,8 @@ class ProcCluster:
     async def device_rows(self) -> dict:
         """The exporter's /metrics, fetched over HTTP: the
         ceph_offload_device_batches rows, {daemon: [device, ...]}."""
-        import asyncio
-        import re
-        reader, writer = await asyncio.open_connection(*self.mgr.exporter.addr)
-        writer.write(b"GET /metrics HTTP/1.0\r\n\r\n")
-        await writer.drain()
-        text = (await reader.read()).decode()
-        writer.close()
-        rows: dict[str, list] = {}
-        for daemon, dev in re.findall(
-                r'^ceph_offload_device_batches\{ceph_daemon="(osd\.\d+)",'
-                r'ceph_device="([^"]+)"\}', text, re.M):
-            rows.setdefault(daemon, []).append(dev)
-        return rows
+        _, _, text = await http(self.mgr.exporter.addr, "GET", "/metrics")
+        return device_rows(text.decode())
 
     # -- 15c and 15d ------------------------------------------------------------
 
@@ -2891,43 +2934,47 @@ async def drive_procs(mods, device: str, procs: int, data: dict,
     return out
 
 
+def run_stage(label: str, stage: str, device: str, timeout_s: float,
+              env: dict | None = None) -> dict:
+    """The port's bench_driver --stage `stage` on `device` as a child
+    process, as phase 11 runs its stages: one JSON line, exit 0 only
+    when every key was measured."""
+    import signal
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "ceph_tpu_torch.tools.bench_driver",
+         "--stage", stage, "--device", device],
+        cwd=REPO, env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+        text=True, start_new_session=True)
+    try:
+        stdout, stderr = proc.communicate(timeout=timeout_s)
+    except subprocess.TimeoutExpired:
+        # the stage's own workers are in its session: stop them too
+        os.killpg(proc.pid, signal.SIGKILL)
+        proc.communicate()
+        raise
+    wall = time.perf_counter() - t0
+    line = stdout.strip().splitlines()[-1] if stdout.strip() else ""
+    log(f"phase {label}: bench_driver --stage {stage} ({wall:.1f} s): "
+        f"{line}")
+    if proc.returncode != 0:
+        log(stderr[-4000:])
+        raise AssertionError(f"bench_driver --stage {stage} exited "
+                             f"{proc.returncode}")
+    return {"wall_s": wall, "record": json.loads(line)}
+
+
 def phase_stages(device: str, timeout_s: float = 600.0) -> dict:
     """15e: the port's bench_driver --stage cluster_tpu and --stage
-    attribution on `device`, each a child process (its curves capped by
-    the stage's own knobs in its environment), as phase 11 runs its
-    stages: one JSON line each, exit 0 only when every key was
-    measured."""
-    import signal
-    stages = {}
+    attribution on `device`, each a child process, their curves capped
+    by the stages' own knobs in its environment."""
     env = dict(os.environ, **STAGE_KNOBS)
-    for stage in ("cluster_tpu", "attribution"):
-        t0 = time.perf_counter()
-        proc = subprocess.Popen(
-            [sys.executable, "-m", "ceph_tpu_torch.tools.bench_driver",
-             "--stage", stage, "--device", device],
-            cwd=REPO, env=env, stdout=subprocess.PIPE,
-            stderr=subprocess.PIPE, text=True, start_new_session=True)
-        try:
-            stdout, stderr = proc.communicate(timeout=timeout_s)
-        except subprocess.TimeoutExpired:
-            # the stage's own workers are in its session: stop them too
-            os.killpg(proc.pid, signal.SIGKILL)
-            proc.communicate()
-            raise
-        wall = time.perf_counter() - t0
-        line = stdout.strip().splitlines()[-1] if stdout.strip() else ""
-        log(f"phase 15e: bench_driver --stage {stage} ({wall:.1f} s): "
-            f"{line}")
-        if proc.returncode != 0:
-            log(stderr[-4000:])
-            raise AssertionError(f"bench_driver --stage {stage} exited "
-                                 f"{proc.returncode}")
-        stages[stage] = {"wall_s": wall, "record": json.loads(line)}
-    return stages
+    return {stage: run_stage("15e", stage, device, timeout_s, env)
+            for stage in ("cluster_tpu", "attribution")}
 
 
 def phase_procs(torch, np, dev, smi: str, sampler_cls=SmiSampler,
-                objects: int = CLUSTER_OBJECTS,
+                objects: int = PROC_OBJECTS,
                 obj_bytes: int = CLUSTER_OBJECT, stages: bool = True
                 ) -> dict:
     """Phase 15 on `dev`: 15a over PROC_COUNTS capped at this machine's
@@ -3027,6 +3074,880 @@ def log_procs_run(r: dict, total: int, smi: str) -> None:
             f"{c['respawn_s']:.2f} s, clean {c['clean_s']:.2f} s later, "
             f"read back healthy in {c['healthy_read_s']:.3f} s")
     log(f"phase 15a [{smi}]: reactor_procs={n}: {r['phase_s']:.1f} s")
+
+
+# -- phase 16: the access layers (RBD, S3, CephFS) on EC pools -----------------
+
+def access_modules():
+    """The port's modules that phase 16 composes, by the names that
+    `AccessPass` reads. Its CPU test hands `AccessPass` the JAX package's
+    modules under the same names, so one composition runs through
+    either package."""
+    import types
+
+    from ceph_tpu_torch import offload
+    from ceph_tpu_torch.mds import CephFS, MDSDaemon
+    from ceph_tpu_torch.mds.daemon import data_oid
+    from ceph_tpu_torch.native import ec_native
+    from ceph_tpu_torch.ops import crc32c, rs_codec
+    from ceph_tpu_torch.rbd import RBD, Image
+    from ceph_tpu_torch.rgw import RGWGateway
+    from ceph_tpu_torch.rgw.gateway import _data_oid
+    from ceph_tpu_torch.tools.vstart import VCluster
+
+    def counts() -> dict:
+        return {"gf_bitmatrix": rs_codec.launches,
+                "crc32c_blocks": crc32c.launches,
+                "gf_bitmatrix_csum": rs_codec.encode_local_launches}
+
+    def reset() -> None:
+        rs_codec.launches = crc32c.launches = 0
+        rs_codec.encode_local_launches = 0
+    return types.SimpleNamespace(
+        VCluster=VCluster, RBD=RBD, Image=Image, RGWGateway=RGWGateway,
+        MDSDaemon=MDSDaemon, CephFS=CephFS, fs_data_oid=data_oid,
+        rgw_data_oid=_data_oid, ec_native=ec_native, offload=offload,
+        plugin="cuda", counts=counts, reset=reset,
+        profile_extra=lambda device: {"device": device},
+        cluster_kwargs=lambda device: {"device": device})
+
+
+#: phase 16's traffic on the card: 4 MiB objects (RBD's order 22 and
+#: CephFS's file layout); cut the counts, never the sizes
+ACCESS_SIZES = {
+    "obj": 4 << 20,              # RBD object, CephFS stripe, S3 object
+    "image": 1 << 30,            # 16a: the image's size
+    "rbd_objects": 32,           # 16a: 128 MiB written, object-aligned
+    "rbd_overwrites": 512,       # 16a: random 4 KiB overwrites (EC RMW)
+    "s3_objects": 16,            # 16b: PUT over HTTP
+    "s3_part": 5 << 20,          # 16b: S3's minimum part size
+    "s3_parts": 3,
+    "fs_objects": 16,            # 16c: one 64 MiB file
+    "fs_overwrites": 256,        # 16c: random 4 KiB overwrites (EC RMW)
+    "fs_purge_objects": 2,       # 16c: an 8 MiB file unlinked
+    "small": 4096,
+    "inflight": 16,              # rbd bench --io-threads, S3 connections
+    "victim": 5,                 # 16e: the OSD stopped
+}
+ACCESS_PGS = 32                  # osd pool create <name> 32 erasure
+ACCESS_SEED = 42
+# upstream's mon_osd_down_out_interval: the OSD stopped in 16e stays in
+# the map while the phase reads around it (the mon's own 30 s would mark
+# it out mid-phase, and the remap of every PG at once would starve this
+# one loop's heartbeats)
+ACCESS_DOWN_OUT_S = 600.0
+# upstream's osd_heartbeat_grace: each map epoch makes every OSD on this
+# one loop map all of the cluster's PGs through CRUSH, 1-12 s of the
+# loop on the card's host, and the port's 3 s grace then marks live
+# OSDs down, which makes more epochs
+ACCESS_HB_GRACE_S = 20.0
+
+
+def device_rows(text: str) -> dict:
+    """The ceph_offload_device_batches rows of a /metrics text,
+    {daemon: [device, ...]}."""
+    import re
+    rows: dict[str, list] = {}
+    for daemon, dev in re.findall(
+            r'^ceph_offload_device_batches\{ceph_daemon="(osd\.\d+)",'
+            r'ceph_device="([^"]+)"\}', text, re.M):
+        rows.setdefault(daemon, []).append(dev)
+    return rows
+
+
+async def http(addr, method: str, path: str, body: bytes = b"",
+               headers: dict | None = None) -> tuple[int, dict, bytes]:
+    """One HTTP/1.0 request to the gateway; (status, headers with
+    lower-case names, body)."""
+    import asyncio
+    reader, writer = await asyncio.open_connection(*addr)
+    try:
+        head = "".join(f"{k}: {v}\r\n" for k, v in (headers or {}).items())
+        writer.write(f"{method} {path} HTTP/1.0\r\nContent-Length: "
+                     f"{len(body)}\r\n{head}\r\n".encode() + body)
+        await writer.drain()
+        blob = await reader.read()
+    finally:
+        writer.close()
+    raw, _, out = blob.partition(b"\r\n\r\n")
+    lines = raw.decode().split("\r\n")
+    hdrs = {}
+    for ln in lines[1:]:
+        name, _, value = ln.partition(":")
+        hdrs[name.strip().lower()] = value.strip()
+    return int(lines[0].split()[1]), hdrs, out
+
+
+class LoopWatch:
+    """The running loop's stalls (how late a 50 ms sleep wakes), stamped,
+    while it is entered; a stall over `loud_s` is logged as it ends.
+    Every OSD of a one-loop cluster sends its heartbeats from this loop,
+    and a stall past their grace marks OSDs down."""
+
+    PERIOD_S = 0.05
+
+    def __init__(self, loud_s: float = 2.0):
+        self.loud_s = loud_s
+        self.stalls: list[tuple[float, float]] = []
+
+    async def _tick(self) -> None:
+        import asyncio
+        while True:
+            t = time.perf_counter()
+            await asyncio.sleep(self.PERIOD_S)
+            now = time.perf_counter()
+            late = now - t - self.PERIOD_S
+            self.stalls.append((now, late))
+            if late > self.loud_s:
+                log(f"loop watch: the loop stalled {late:.2f} s")
+
+    async def __aenter__(self):
+        import asyncio
+        self._task = asyncio.get_running_loop().create_task(self._tick())
+        return self
+
+    async def __aexit__(self, *exc):
+        import asyncio
+        self._task.cancel()
+        try:
+            await self._task
+        except asyncio.CancelledError:
+            pass
+        return False
+
+    def since(self, t0: float) -> dict:
+        """The deepest stall that ended after `t0`."""
+        return {"loop_stall_max_s": max((s for t, s in self.stalls if t > t0),
+                                        default=0.0)}
+
+
+class AccessPass:
+    """Phase 16: a vstart cluster (one mon, `n_osds` OSDs on MemStore in
+    this process, each its own host, a mgr, VCluster's own gateway
+    rgw.0) with one EC profile (`mods.plugin`, k, m) shared by three EC
+    data pools created as a user creates them (`osd pool create <name>
+    <pg_num> erasure`: the mon derives 4 KiB chunks): `rbd_ec` beside a
+    replicated `rbd` pool for the image headers, `fs_ec` beside a
+    replicated `cephfs_metadata` under an MDSDaemon with the file
+    layout's stripe, and `rgw_ec` under a second gateway `rgw.ec` whose
+    bucket index is VCluster's `rgw_index`. The device crc is on
+    (`ec_offload_crc_device`, through osd.0's config), the mgr's balancer
+    is off, the failure detection takes upstream's defaults (a 20 s
+    heartbeat grace; a down OSD marked out after 600 s), and background
+    scrub waits past the run. Every step checks what it reads against
+    models built from `seed`; every wait is a deadline that raises with
+    the state it saw."""
+
+    RBD_POOL, RBD_DATA = "rbd", "rbd_ec"
+    FS_META, FS_DATA = "cephfs_metadata", "fs_ec"
+    RGW_DATA, BUCKET = "rgw_ec", "b"
+    EC_POOLS = (RBD_DATA, FS_DATA, RGW_DATA)
+    TIMEOUT_S = 120.0
+
+    def __init__(self, mods, root: str, device: str, k: int, m: int,
+                 pg_num: int, sizes: dict, seed: int = ACCESS_SEED):
+        import numpy as np
+        self.mods, self.root, self.device = mods, root, device
+        self.k, self.m, self.pg_num = k, m, pg_num
+        self.n_osds = k + m
+        self.sz = dict(sizes)
+        obj, small = self.sz["obj"], self.sz["small"]
+        rng = np.random.default_rng(seed)
+        self.rbd_model = bytearray(rng.bytes(self.sz["rbd_objects"] * obj))
+        blocks = len(self.rbd_model) // small
+        self.rbd_over = [(int(b) * small, rng.bytes(small)) for b in
+                         rng.choice(blocks, self.sz["rbd_overwrites"],
+                                    replace=False)]
+        self.s3 = {f"o{i:03d}": rng.bytes(obj)
+                   for i in range(self.sz["s3_objects"])}
+        self.parts = [rng.bytes(self.sz["s3_part"])
+                      for _ in range(self.sz["s3_parts"])]
+        self.fs_model = bytearray(rng.bytes(self.sz["fs_objects"] * obj))
+        # overwrites at random offsets, one a slot of two small blocks,
+        # so that none overlaps another in flight
+        slots = len(self.fs_model) // (2 * small)
+        self.fs_over = [(int(s) * 2 * small + int(rng.integers(0, small + 1)),
+                         rng.bytes(small)) for s in
+                        rng.choice(slots, self.sz["fs_overwrites"],
+                                   replace=False)]
+        self.purge_data = rng.bytes(self.sz["fs_purge_objects"] * obj)
+        self.etags: dict = {}
+        self.c = self.client = self.svc = self.watch = None
+        self.img = self.mds = self.fs = self.gw = self._fs_ino = None
+
+    # -- the cluster -----------------------------------------------------------
+
+    async def boot(self) -> dict:
+        t0 = time.perf_counter()
+        self.c = self.mods.VCluster(
+            self.root, n_mons=1, n_osds=self.n_osds, with_mgr=True,
+            with_rgw=True, **self.mods.cluster_kwargs(self.device))
+        await self.c.start()
+        # `ceph balancer off`, which this mgr has no command for, so the
+        # module leaves the list the mgr ticks: each pg-temp remap of the
+        # balancer is a new map epoch, at which every OSD on this one
+        # loop maps all of the cluster's PGs through CRUSH again; with
+        # 120 PGs its remaps starved the heartbeats until every OSD was
+        # "wrongly marked down", epoch after epoch
+        self.c.mgr.modules = [mod for mod in self.c.mgr.modules
+                              if mod.NAME != "balancer"]
+        for mon in self.c.mons.values():
+            mon.osdmon.DOWN_OUT_INTERVAL = ACCESS_DOWN_OUT_S
+        for osd in self.c.osds.values():
+            osd.config.set("osd_heartbeat_grace", ACCESS_HB_GRACE_S)
+            # background scrub rounds wait past the run
+            osd.config.set("osd_scrub_interval", 3600.0)
+        boot_s = time.perf_counter() - t0
+        cl = self.client = await self.c.client()
+        await cl.command({
+            "prefix": "osd erasure-code-profile set", "name": "accessprof",
+            "profile": {"plugin": self.mods.plugin, "k": str(self.k),
+                        "m": str(self.m),
+                        **self.mods.profile_extra(self.device)}})
+        # one pool at a time, each clean before the next (as an
+        # operator waits for HEALTH_OK): the peering of 32 EC PGs on 11
+        # OSDs is seconds of this one loop's time, and three pools'
+        # peering at once starved the heartbeats past their grace, so
+        # every OSD was "wrongly marked down" and peered again
+        size = min(3, self.n_osds)
+        clean_s = {}
+        for name, kind in ((self.RBD_POOL, "replicated"),
+                           (self.RBD_DATA, "erasure"),
+                           (self.FS_META, "replicated"),
+                           (self.FS_DATA, "erasure"),
+                           (self.RGW_DATA, "erasure")):
+            if kind == "erasure":
+                await cl.pool_create(name, pg_num=self.pg_num,
+                                     pool_type="erasure",
+                                     erasure_code_profile="accessprof")
+            else:
+                await cl.pool_create(name, pg_num=8, size=size)
+            clean_s[name] = await self.wait_clean()
+        self.c.osds[0].config.set("ec_offload_crc_device", True)
+        self.svc = self.mods.offload.get_service()
+        if not self.svc.crc_device:
+            raise AssertionError("ec_offload_crc_device did not reach the "
+                                 "service")
+        pool = cl.osdmap.get_pool(self.RBD_DATA)
+        self.stripe_width = pool.stripe_width
+        self.mds = self.mods.MDSDaemon(self.c.mon_addrs,
+                                       metadata_pool=self.FS_META,
+                                       data_pool=self.FS_DATA)
+        self.mds.stripe_unit = self.sz["obj"]
+        await self.mds.start()
+        self.gw = self.mods.RGWGateway(
+            cl.ioctx("rgw_index"), data_ioctx=cl.ioctx(self.RGW_DATA),
+            name="rgw.ec")
+        await self.gw.start()
+        return {"boot_s": boot_s, "clean_s": clean_s,
+                "stripe_width": self.stripe_width,
+                "chunk": self.stripe_width // self.k}
+
+    async def wait_clean(self) -> float:
+        """Seconds until every PG of every pool is active on a full
+        acting set with nothing left to recover."""
+        import asyncio
+        loop = asyncio.get_running_loop()
+        t0 = loop.time()
+        while True:
+            pools = self.client.osdmap.pools.values()
+            prim = [pg for o in self.c.osds.values() for pg in o.pgs.values()
+                    if pg.is_primary()]
+            ok = [pg for pg in prim if pg.state == "active"
+                  and not pg._pending_recovery and not pg._deferred_activate
+                  and len([a for a in pg.acting if a in self.c.osds])
+                  == pg.pool.size]
+            want = sum(p.pg_num for p in pools)
+            if len(prim) == want and len(ok) == want:
+                return loop.time() - t0
+            if loop.time() - t0 > self.TIMEOUT_S:
+                raise TimeoutError(f"{len(ok)} of {want} PGs clean "
+                                   f"({len(prim)} with a primary)")
+            await asyncio.sleep(0.05)
+
+    async def stop(self) -> None:
+        import asyncio
+        if self.img is not None:
+            await asyncio.wait_for(self.img.close(), 30)
+        if self.fs is not None:
+            await asyncio.wait_for(self.fs.unmount(), 30)
+        for daemon in (self.mds, self.gw):
+            if daemon is not None:
+                await asyncio.wait_for(daemon.stop(), 30)
+        if self.c is not None:
+            await self.c.stop()
+
+    # -- accounting ------------------------------------------------------------
+
+    def _counts(self) -> dict:
+        return {**self.mods.counts(), "batches": self.svc.stats["batches"],
+                "riders": self.svc.stats["batched_ops"],
+                "fallback_ops": self.svc.stats["fallback_ops"]}
+
+    async def _step(self, name: str, fn) -> dict:
+        """Run `fn`, a coroutine function returning the client bytes it
+        moved (and its ops); its seconds, what the service and the
+        kernels did meanwhile, and `self.watch`'s reading of the loop
+        over it. A progress line names the step as it ends. A batch that
+        reached the host fallback fails the step."""
+        before = self._counts()
+        t0 = time.perf_counter()
+        out = await fn() or {}
+        out["seconds"] = time.perf_counter() - t0
+        out.update(self.watch.since(t0))
+        log(f"phase 16 {name}: {out['seconds']:.2f} s; the loop's deepest "
+            f"stall {out['loop_stall_max_s']:.3f} s")
+        after = self._counts()
+        d = {k: after[k] - before[k] for k in after}
+        out["launches"] = {k: d[k] for k in ("gf_bitmatrix", "crc32c_blocks",
+                                             "gf_bitmatrix_csum")}
+        out["batches"] = d["batches"]
+        out["riders_per_batch"] = (d["riders"] / d["batches"]
+                                   if d["batches"] else None)
+        out["fallback_ops"] = d["fallback_ops"]
+        # rates over the traffic's own time (`io_s`, where the step also
+        # opened a profiler window), else over the step
+        io_s = out.setdefault("io_s", out["seconds"])
+        out["gb_s"] = out["bytes"] / io_s / 1e9
+        if "ops" in out:
+            out["iops"] = out["ops"] / io_s
+        if d["fallback_ops"]:
+            raise AssertionError(f"{d['fallback_ops']} ops reached the host "
+                                 f"fallback")
+        return out
+
+    async def _gather(self, jobs) -> None:
+        """Await the coroutine functions in `jobs`, `inflight` at once."""
+        import asyncio
+        sem = asyncio.Semaphore(self.sz["inflight"])
+
+        async def one(job):
+            async with sem:
+                await job()
+        await asyncio.gather(*[one(j) for j in jobs])
+
+    def _pieces(self, total: int):
+        obj = self.sz["obj"]
+        return [(off, min(obj, total - off)) for off in range(0, total, obj)]
+
+    # -- 16a: an RBD image with its data in rbd_ec -------------------------------
+
+    async def rbd_write(self) -> dict:
+        io = self.client.ioctx(self.RBD_POOL)
+        await self.mods.RBD.create(io, "img", self.sz["image"],
+                                   order=self.sz["obj"].bit_length() - 1,
+                                   data_pool=self.RBD_DATA)
+        self.img = await self.mods.Image.open(io, "img")
+        model = bytes(self.rbd_model)
+
+        def job(off, n):
+            return lambda: self.img.write(off, model[off:off + n])
+        await self._gather([job(o, n) for o, n in
+                            self._pieces(len(model))])
+        return {"bytes": len(model), "ops": len(model) // self.sz["obj"]}
+
+    async def rbd_overwrite(self) -> dict:
+        def job(off, blob):
+            return lambda: self.img.write(off, blob)
+        await self._gather([job(o, b) for o, b in self.rbd_over])
+        for off, blob in self.rbd_over:
+            self.rbd_model[off:off + len(blob)] = blob
+        return {"bytes": len(self.rbd_over) * self.sz["small"],
+                "ops": len(self.rbd_over)}
+
+    async def rbd_read(self) -> dict:
+        got = {}
+
+        def job(off, n):
+            async def read():
+                got[off] = await self.img.read(off, n)
+            return read
+        pieces = self._pieces(len(self.rbd_model))
+        await self._gather([job(o, n) for o, n in pieces])
+        for off, n in pieces:
+            if got[off] != self.rbd_model[off:off + n]:
+                raise AssertionError(f"image bytes at {off} differ from "
+                                     f"the model")
+        return {"bytes": len(self.rbd_model), "ops": len(pieces)}
+
+    # -- 16b: an S3 bucket with its data in rgw_ec ------------------------------
+
+    def _crc(self, data: bytes) -> str:
+        return f"{self.mods.ec_native.crc32c(data):08x}"
+
+    async def s3_put(self) -> dict:
+        status, _, body = await http(self.gw.addr, "PUT", f"/{self.BUCKET}")
+        if status != 200:
+            raise AssertionError(f"PUT bucket: {status} {body!r}")
+
+        def job(key, data):
+            async def put():
+                st, hdrs, out = await http(self.gw.addr, "PUT",
+                                           f"/{self.BUCKET}/{key}", data)
+                if st != 200:
+                    raise AssertionError(f"PUT {key}: {st} {out!r}")
+                self.etags[key] = hdrs["etag"].strip('"')
+            return put
+        await self._gather([job(k, d) for k, d in self.s3.items()])
+        for key, data in self.s3.items():
+            if self.etags[key] != self._crc(data):
+                raise AssertionError(f"PUT {key}: ETag {self.etags[key]} is "
+                                     f"not the crc32c of its bytes")
+        return {"bytes": sum(map(len, self.s3.values())),
+                "ops": len(self.s3)}
+
+    async def s3_multipart(self) -> dict:
+        path = f"/{self.BUCKET}/mp"
+        st, _, out = await http(self.gw.addr, "POST", path + "?uploads")
+        if st != 200:
+            raise AssertionError(f"initiate multipart: {st} {out!r}")
+        uid = out.split(b"<UploadId>")[1].split(b"</UploadId>")[0].decode()
+
+        def job(n, data):
+            async def put():
+                st, hdrs, out = await http(
+                    self.gw.addr, "PUT",
+                    f"{path}?partNumber={n}&uploadId={uid}", data)
+                if st != 200 or hdrs["etag"].strip('"') != self._crc(data):
+                    raise AssertionError(f"part {n}: {st} {hdrs} {out!r}")
+            return put
+        await self._gather([job(n, d) for n, d in
+                            enumerate(self.parts, start=1)])
+        st, _, out = await http(self.gw.addr, "POST",
+                                f"{path}?uploadId={uid}")
+        etag = out.split(b"<ETag>&quot;")[1].split(b"&quot;</ETag>")[0]
+        whole = b"".join(self.parts)
+        if st != 200 or etag.decode() != \
+                f"{self._crc(whole)}-{len(self.parts)}":
+            raise AssertionError(f"complete multipart: {st} {out!r}")
+        self.s3["mp"] = whole
+        self.etags["mp"] = etag.decode()
+        return {"bytes": len(whole), "ops": len(self.parts)}
+
+    async def s3_get(self) -> dict:
+        def job(key, data):
+            async def get():
+                st, hdrs, out = await http(self.gw.addr, "GET",
+                                           f"/{self.BUCKET}/{key}")
+                if st != 200 or out != data:
+                    raise AssertionError(f"GET {key}: {st}, "
+                                         f"{len(out)} bytes differ")
+                if hdrs["etag"].strip('"') != self._crc(data):
+                    raise AssertionError(f"GET {key}: ETag {hdrs['etag']}")
+            return get
+        await self._gather([job(k, d) for k, d in self.s3.items()])
+        key = sorted(self.s3)[0]
+        lo, hi = 100, self.sz["obj"] // 2 + 99
+        st, hdrs, out = await http(self.gw.addr, "GET",
+                                   f"/{self.BUCKET}/{key}",
+                                   headers={"Range": f"bytes={lo}-{hi}"})
+        if st != 206 or out != self.s3[key][lo:hi + 1]:
+            raise AssertionError(f"ranged GET {key}: {st}, {len(out)} bytes")
+        return {"bytes": sum(map(len, self.s3.values())) + len(out),
+                "ops": len(self.s3) + 1}
+
+    # -- 16c: a CephFS file with its data in fs_ec ------------------------------
+
+    async def fs_write(self) -> dict:
+        self.fs = self.mods.CephFS(self.c.mon_addrs, self.mds.addr,
+                                   data_pool=self.FS_DATA)
+        await self.fs.mount()
+        await self.fs.mkdir("/d")
+        fh = await self.fs.open("/d/file", "w")
+        model = bytes(self.fs_model)
+
+        def job(off, n):
+            return lambda: fh.write(model[off:off + n], off)
+        await self._gather([job(o, n) for o, n in self._pieces(len(model))])
+        await fh.close()
+        return {"bytes": len(model), "ops": len(model) // self.sz["obj"]}
+
+    async def fs_overwrite(self) -> dict:
+        fh = await self.fs.open("/d/file", "a")
+
+        def job(off, blob):
+            return lambda: fh.write(blob, off)
+        await self._gather([job(o, b) for o, b in self.fs_over])
+        await fh.close()
+        for off, blob in self.fs_over:
+            self.fs_model[off:off + len(blob)] = blob
+        return {"bytes": len(self.fs_over) * self.sz["small"],
+                "ops": len(self.fs_over)}
+
+    async def fs_read(self) -> dict:
+        fh = await self.fs.open("/d/file", "r")
+        if fh.size != len(self.fs_model):
+            raise AssertionError(f"file size {fh.size}, model "
+                                 f"{len(self.fs_model)}")
+        got = {}
+
+        def job(off, n):
+            async def read():
+                got[off] = await fh.read(n, off)
+            return read
+        pieces = self._pieces(len(self.fs_model))
+        await self._gather([job(o, n) for o, n in pieces])
+        for off, n in pieces:
+            if got[off] != self.fs_model[off:off + n]:
+                raise AssertionError(f"file bytes at {off} differ from the "
+                                     f"model")
+        return {"bytes": len(self.fs_model), "ops": len(pieces)}
+
+    async def fs_purge(self) -> dict:
+        """An 8 MiB second file written, unlinked, and waited on until
+        its data objects are gone from fs_ec."""
+        import asyncio
+        await self.fs.write_file("/d/purge", self.purge_data)
+        if await self.fs.read_file("/d/purge") != self.purge_data:
+            raise AssertionError("/d/purge read back differs")
+        prefix = f"{(await self.fs.stat('/d/purge'))['ino']:x}."
+        data = self.client.ioctx(self.FS_DATA)
+        held = [o for o in await data.list_objects() if o.startswith(prefix)]
+        if len(held) != self.sz["fs_purge_objects"]:
+            raise AssertionError(f"/d/purge holds {held}")
+        t0 = time.perf_counter()
+        await self.fs.unlink("/d/purge")
+        while True:
+            left = [o for o in await data.list_objects()
+                    if o.startswith(prefix)]
+            if not left:
+                break
+            if time.perf_counter() - t0 > self.TIMEOUT_S:
+                raise TimeoutError(f"unlink left {left} in {self.FS_DATA}")
+            await asyncio.sleep(0.1)
+        return {"bytes": len(self.purge_data), "purged": len(held),
+                "purge_s": time.perf_counter() - t0}
+
+    # -- 16d: every shard against the host codec ---------------------------------
+
+    def objects(self) -> dict:
+        """Every EC data object the models hold: name -> bytes."""
+        obj = self.sz["obj"]
+        out = {}
+        for off in range(0, len(self.rbd_model), obj):
+            out[self.img._data_oid(off // obj)] = bytes(
+                self.rbd_model[off:off + obj])
+        ino = self._fs_ino
+        for off in range(0, len(self.fs_model), obj):
+            out[self.mods.fs_data_oid(ino, off // obj)] = bytes(
+                self.fs_model[off:off + obj])
+        for key, data in self.s3.items():
+            out[self.mods.rgw_data_oid(self.BUCKET, key)] = data
+        return out
+
+    async def check_shards(self, np) -> dict:
+        """Every shard on every OSD of the three EC pools equals the host
+        codec's (native/ec_native.cc) encode of the object bytes the
+        models hold, and no other shard object is left but the rollback
+        generations (the purged file's and the multipart parts' are
+        gone); returns {(osd, object, shard): crc32c of the shard} for
+        the comparison across packages."""
+        import asyncio
+
+        from ceph_tpu_torch.ec import gf256
+        self._fs_ino = (await self.fs.stat("/d/file"))["ino"]
+        coding = gf256.reed_sol_van_matrix(self.k, self.m)
+        sw, chunk = self.stripe_width, self.stripe_width // self.k
+        want = {}
+        for oid, data in self.objects().items():
+            pad = -len(data) % sw
+            d = np.frombuffer(data + bytes(pad), dtype=np.uint8).reshape(
+                -1, self.k, chunk).transpose(1, 0, 2).reshape(self.k, -1)
+            par = np.empty((self.m, d.shape[1]), dtype=np.uint8)
+            self.mods.ec_native.encode(coding, d, par)
+            want[oid] = np.concatenate([d, par])
+            # the heartbeats share this loop: yield between objects
+            await asyncio.sleep(0)
+        seen = {}
+        for i, osd in self.c.osds.items():
+            st = osd.store
+            for cid in st.list_collections():
+                await asyncio.sleep(0)
+                for gh in st.collection_list(cid):
+                    attrs = st.getattrs(cid, gh)
+                    if "shard" not in attrs:
+                        continue
+                    if gh.name.endswith("\x00prev"):
+                        continue
+                    if gh.name not in want:
+                        raise AssertionError(f"osd.{i} holds a shard of "
+                                             f"{gh.name!r}, which no model "
+                                             f"holds")
+                    s = int(attrs["shard"])
+                    blob = st.read(cid, gh)
+                    if blob != want[gh.name][s].tobytes():
+                        raise AssertionError(f"osd.{i} shard {s} of "
+                                             f"{gh.name} differs from the "
+                                             f"host codec's")
+                    seen[(i, gh.name, s)] = self.mods.ec_native.crc32c(blob)
+        if len(seen) != self.n_osds * len(want):
+            raise AssertionError(f"{len(seen)} shards found, expected "
+                                 f"{self.n_osds * len(want)}")
+        return seen
+
+    # -- 16f: the mgr's view ----------------------------------------------------
+
+    async def mgr_view(self) -> dict:
+        """The daemon index holds osd, mon, mds and rgw; /metrics carries
+        rows for the MDS and both gateways and a ceph_device row for
+        every OSD; health through the mgr."""
+        import asyncio
+        import re
+        want = {"osd", "mon", "mds", "rgw"}
+        daemons = {self.mds.name, "rgw.0", self.gw.name}
+        osds = {f"osd.{i}" for i in self.c.osds}
+        t0 = time.perf_counter()
+        while True:
+            index = self.c.mgr.daemon_index.daemons
+            services = {st.service for st in index.values()}
+            _, _, blob = await http(self.c.mgr.exporter.addr, "GET",
+                                    "/metrics")
+            text = blob.decode()
+            labelled = set(re.findall(r'ceph_daemon="([^"]+)"', text))
+            rows = device_rows(text)
+            if want <= services and daemons <= labelled \
+                    and set(rows) == osds:
+                break
+            if time.perf_counter() - t0 > self.TIMEOUT_S:
+                raise TimeoutError(
+                    f"mgr: services {sorted(services)}, labelled "
+                    f"{sorted(labelled & daemons)}, device rows "
+                    f"{sorted(rows)}")
+            await asyncio.sleep(0.25)
+        health = await self.c.mgr.mon_command({"prefix": "health"})
+        if not str(health.get("status", "")).startswith("HEALTH_"):
+            raise AssertionError(f"health through the mgr: {health}")
+        return {"services": sorted(services), "daemons": sorted(index),
+                "device_rows": {d: sorted(v) for d, v in rows.items()},
+                "health": health.get("status"),
+                "checks": sorted(health.get("checks", {})),
+                "converged_s": time.perf_counter() - t0}
+
+    # -- 16e: one OSD down, everything read degraded ------------------------------
+
+    async def degraded(self) -> dict:
+        import asyncio
+        victim = self.sz["victim"]
+        t0 = time.perf_counter()
+        await self.c.kill_osd(victim)
+        while not all(victim in o.osdmap.osds and not o.osdmap.osds[victim].up
+                      for o in self.c.osds.values()):
+            if time.perf_counter() - t0 > self.TIMEOUT_S:
+                raise TimeoutError(f"osd.{victim} never marked down")
+            await asyncio.sleep(0.05)
+        down_s = time.perf_counter() - t0
+        t1 = time.perf_counter()
+        moved = (await self.rbd_read())["bytes"]
+        moved += (await self.s3_get())["bytes"]
+        moved += (await self.fs_read())["bytes"]
+        return {"bytes": moved, "victim": victim, "down_s": down_s,
+                "read_s": time.perf_counter() - t1}
+
+
+async def drive_access(ap: AccessPass, np, window=None) -> dict:
+    """16a-16f on `ap` (16f runs before 16e, while every OSD is up, so
+    that /metrics holds a ceph_device row for each). `window`, a context
+    manager, is entered around 16a's 4 MiB writes alone, on a thread of
+    its own: starting the profiler takes seconds, and on the loop's
+    thread it would stall every daemon's heartbeats at once."""
+    async with LoopWatch() as ap.watch:
+        return await _drive_access(ap, np, window)
+
+
+async def _drive_access(ap: AccessPass, np, window) -> dict:
+    import asyncio
+    import concurrent.futures
+    t0 = time.perf_counter()
+    out = {"boot": await ap.boot()}
+    out["boot"].update(ap.watch.since(t0))
+    log(f"phase 16 boot: {time.perf_counter() - t0:.2f} s; the loop's "
+        f"deepest stall {out['boot']['loop_stall_max_s']:.3f} s")
+    side = concurrent.futures.ThreadPoolExecutor(1)
+    loop = asyncio.get_running_loop()
+    try:
+        async def traced_write():
+            if window is None:
+                return await ap.rbd_write()
+            t0 = time.perf_counter()
+            await loop.run_in_executor(side, window.__enter__)
+            enter_s = time.perf_counter() - t0
+            try:
+                t0 = time.perf_counter()
+                res = await ap.rbd_write()
+                res["io_s"] = time.perf_counter() - t0
+            finally:
+                t0 = time.perf_counter()
+                await loop.run_in_executor(side, window.__exit__,
+                                           None, None, None)
+            res.update(window_enter_s=enter_s,
+                       window_exit_s=time.perf_counter() - t0)
+            return res
+        out["a_write"] = await ap._step("a_write", traced_write)
+        out["a_overwrite"] = await ap._step("a_overwrite", ap.rbd_overwrite)
+        out["a_read"] = await ap._step("a_read", ap.rbd_read)
+        out["b_put"] = await ap._step("b_put", ap.s3_put)
+        out["b_multipart"] = await ap._step("b_multipart", ap.s3_multipart)
+        out["b_get"] = await ap._step("b_get", ap.s3_get)
+        out["c_write"] = await ap._step("c_write", ap.fs_write)
+        out["c_overwrite"] = await ap._step("c_overwrite", ap.fs_overwrite)
+        out["c_read"] = await ap._step("c_read", ap.fs_read)
+        out["c_purge"] = await ap._step("c_purge", ap.fs_purge)
+        shards = await ap.check_shards(np)
+        out["d"] = {"shards": len(shards),
+                    "objects": len(ap.objects())}
+        out["f"] = await ap.mgr_view()
+        out["e"] = await ap._step("e", ap.degraded)
+        out["etags"] = dict(ap.etags)
+        out["store"] = shards
+        out["fallback_ops"] = ap.svc.stats["fallback_ops"]
+    except BaseException:
+        # the teardown below may fail too, and hide this
+        import traceback
+        log("phase 16: failed; the cluster stops next")
+        traceback.print_exc()
+        raise
+    finally:
+        side.shutdown()
+        t0 = time.perf_counter()
+        await ap.stop()
+        log(f"phase 16: the cluster stopped in {time.perf_counter() - t0:.2f}"
+            f" s")
+    if out["fallback_ops"]:
+        raise AssertionError(f"{out['fallback_ops']} ops reached the host "
+                             f"fallback")
+    return out
+
+
+ACCESS_STEPS = ("a_write", "a_overwrite", "a_read", "b_put", "b_multipart",
+                "b_get", "c_write", "c_overwrite", "c_read", "c_purge", "e")
+
+
+def phase_stage_cluster(device: str, timeout_s: float = 300.0) -> dict:
+    """16g: the port's bench_driver --stage cluster on `device` as a
+    child process; its `health` must hold a status."""
+    out = run_stage("16g", "cluster", device, timeout_s)
+    health = out["record"]["health"]
+    if not str(health.get("status", "")).startswith("HEALTH_"):
+        raise AssertionError(f"--stage cluster health: {health}")
+    return out
+
+
+def phase_access(torch, np, dev, smi: str, window_cls=None,
+                 sizes: dict = ACCESS_SIZES) -> dict:
+    """Phase 16 on `dev`: AccessPass at the north star's code (plugin
+    cuda, k=8 m=3) over `sizes`, in a temporary directory removed at the
+    end; the card's idle share over 16a's writes (`window_cls`, default
+    DeviceWindow); then 16g. K1 and K2 must launch in each of 16a, 16b
+    and 16c, K1 in 16e."""
+    import asyncio
+    import shutil
+    import tempfile
+    mods = access_modules()
+    root = tempfile.mkdtemp(prefix="chip_smoke_access_")
+    t0 = time.perf_counter()
+    try:
+        ap = AccessPass(mods, root, str(dev), K, M, ACCESS_PGS, sizes)
+        window = (window_cls or DeviceWindow)(torch)
+        mods.reset()
+        out = asyncio.run(asyncio.wait_for(drive_access(ap, np, window),
+                                           600))
+        out["launches"] = mods.counts()
+        out["idle_share"] = window.idle_share
+        out["busy_s"] = getattr(window, "busy_s", None)
+        out["window_s"] = getattr(window, "window_s", None)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    out["sizes"] = dict(sizes)
+    out["store"] = len(out["store"])
+    out["drive_s"] = time.perf_counter() - t0
+    if dev.type == "cuda":
+        for group in ("a", "b", "c"):
+            for kname in ("gf_bitmatrix", "crc32c_blocks"):
+                n = sum(out[s]["launches"][kname] for s in ACCESS_STEPS
+                        if s.startswith(group))
+                if n <= 0:
+                    raise AssertionError(f"16{group} never launched {kname}")
+        if out["e"]["launches"]["gf_bitmatrix"] <= 0:
+            raise AssertionError("16e's degraded reads never launched "
+                                 "gf_bitmatrix")
+    out["g"] = phase_stage_cluster("cuda" if dev.type == "cuda" else "cpu")
+    out["card"] = smi
+    return out
+
+
+def log_access(r: dict, smi: str) -> None:
+    b = r["boot"]
+    sz = r["sizes"]
+    log(f"phase 16 [{smi}]: vstart 1 mon + {K + M} OSDs + mgr + rgw.0 "
+        f"booted in {b['boot_s']:.2f} s; pools rbd_ec, fs_ec, rgw_ec "
+        f"pg_num {ACCESS_PGS} (plugin cuda k={K} m={M}, {b['chunk']}-byte "
+        f"chunks, stripe {b['stripe_width']}), an MDS and gateway rgw.ec; "
+        f"seconds to clean after each pool's create "
+        f"{ {k: round(v, 2) for k, v in b['clean_s'].items()} }; "
+        f"{sz['obj'] >> 20} MiB objects, {sz['inflight']} in flight")
+    what = {
+        "a_write": f"RBD {sz['rbd_objects']} object-aligned writes into a "
+                   f"{sz['image'] >> 20} MiB image (data pool rbd_ec)",
+        "a_overwrite": f"RBD {sz['rbd_overwrites']} random 4 KiB overwrites "
+                       f"(EC read-modify-write)",
+        "a_read": "RBD the written range read back, equal to the model",
+        "b_put": f"S3 PUT of {sz['s3_objects']} objects over HTTP, ETag = "
+                 f"crc32c",
+        "b_multipart": f"S3 multipart upload of {sz['s3_parts']} parts of "
+                       f"{sz['s3_part'] >> 20} MiB",
+        "b_get": "S3 GET of every object and one ranged GET, equal, ETag = "
+                 "crc32c",
+        "c_write": f"CephFS one {sz['fs_objects'] * sz['obj'] >> 20} MiB "
+                   f"file in {sz['obj'] >> 20} MiB writes (data pool fs_ec)",
+        "c_overwrite": f"CephFS {sz['fs_overwrites']} random 4 KiB "
+                       f"overwrites (EC read-modify-write)",
+        "c_read": "CephFS the file read back, equal to the model",
+        "c_purge": f"CephFS a {sz['fs_purge_objects'] * sz['obj'] >> 20} "
+                   f"MiB file written, unlinked and purged from fs_ec",
+        "e": f"osd.{sz['victim']} stopped, every image, S3 and file byte "
+             f"read degraded, equal",
+    }
+    def line(step):
+        s = r[step]
+        rpb = s["riders_per_batch"]
+        iops = f", {s['iops']:.0f} IOPS" if "iops" in s else ""
+        extra = ""
+        if "window_enter_s" in s:
+            extra = (f" ({s['io_s']:.3f} s of traffic inside a profiler "
+                     f"window entered in {s['window_enter_s']:.2f} s and "
+                     f"left in {s['window_exit_s']:.2f} s)")
+        if step == "e":
+            extra = (f" (marked down in {s['down_s']:.2f} s, reads "
+                     f"{s['read_s']:.3f} s)")
+        if step == "c_purge":
+            extra = f" (purged in {s['purge_s']:.2f} s)"
+        log(f"phase 16{step[0]} [{smi}]: {what[step]}: {s['seconds']:.3f} s"
+            f"{extra}, {s['gb_s']:.3f} GB/s of client bytes{iops} (host "
+            f"clock); {s['batches']} device batches, "
+            f"{'n/a' if rpb is None else f'{rpb:.2f}'} riders a batch; "
+            f"launches K1 {s['launches']['gf_bitmatrix']}, K2 "
+            f"{s['launches']['crc32c_blocks']}, K3 "
+            f"{s['launches']['gf_bitmatrix_csum']}; fallback_ops "
+            f"{s['fallback_ops']}; the loop's deepest stall "
+            f"{s['loop_stall_max_s']:.3f} s")
+        if step == "a_write":
+            busy = "n/a" if r["busy_s"] is None \
+                else f"{r['busy_s'] * 1e3:.1f} ms"
+            log(f"phase 16a [{smi}]: card idle {share(r['idle_share'])} of "
+                f"the 4 MiB writes ({busy} busy)")
+    for step in ACCESS_STEPS[:-1]:
+        line(step)
+    log(f"phase 16d [{smi}]: every shard of {r['d']['objects']} objects on "
+        f"every OSD ({r['d']['shards']} shards) equal to the host codec's; "
+        f"no other shard object left but the rollback generations")
+    f = r["f"]
+    log(f"phase 16f [{smi}]: mgr services {f['services']}; /metrics labels "
+        f"the MDS and both gateways and carries a ceph_device row for "
+        f"{len(f['device_rows'])} OSDs; health {f['health']} "
+        f"{f['checks']} (converged in {f['converged_s']:.2f} s)")
+    line("e")
+    log(f"phase 16 [{smi}]: launches {r['launches']}; fallback_ops "
+        f"{r['fallback_ops']}; 16a-16f {r['drive_s']:.1f} s")
 
 
 def main() -> int:
@@ -3681,6 +4602,15 @@ def main() -> int:
     log(f"phase 15 [{smi}]: launches summed over every process of 15a and "
         f"15d's degraded reads: {pr['launches']}; {time.perf_counter() - t0:.1f}"
         f" s")
+
+    # -- phase 16: the access layers with their data in EC pools ---------------
+    t0 = time.perf_counter()
+    ac = phase_access(torch, np, dev, smi)
+    log_access(ac, smi)
+    report["access"] = ac
+    ac["phase_s"] = time.perf_counter() - t0
+    log(f"phase 16 [{smi}]: {ac['phase_s']:.1f} s (16g "
+        f"{ac['g']['wall_s']:.1f} s)")
     plugin_launches = {kname: sum(plugins[pname]["launches"][kname]
                                   for pname, _ in PLUGINS)
                        for kname in ("gf_bitmatrix", "crc32c_blocks")}
@@ -3696,13 +4626,14 @@ def main() -> int:
          "launches": svc_launches["gf_bitmatrix"]
          + plugin_launches["gf_bitmatrix"] + rx["launches"]["gf_bitmatrix"]
          + st["launches"]["gf_bitmatrix"] + cl["launches"]["gf_bitmatrix"]
-         + pr["launches"]["gf_bitmatrix"],
+         + pr["launches"]["gf_bitmatrix"] + ac["launches"]["gf_bitmatrix"],
          "launches_by_path": {"service": svc_launches["gf_bitmatrix"],
                               "plugins": plugin_launches["gf_bitmatrix"],
                               "reactor": rx["launches"]["gf_bitmatrix"],
                               "store_path": st["launches"]["gf_bitmatrix"],
                               "cluster": cl["launches"]["gf_bitmatrix"],
-                              "procs": pr["launches"]["gf_bitmatrix"]},
+                              "procs": pr["launches"]["gf_bitmatrix"],
+                              "access": ac["launches"]["gf_bitmatrix"]},
          "max_abs_err": k1_err, "tolerance": 0, "ms": k1_ms, "kernel_ms": k1_ms,
          "isolated_ms": k1_iso_ms,
          "plain_ms": k1_plain_ms, "bound_ms": k1_bound, "bound_by": k1_by,
@@ -3715,13 +4646,14 @@ def main() -> int:
          "launches": svc_launches["crc32c_blocks"]
          + plugin_launches["crc32c_blocks"] + rx["launches"]["crc32c_blocks"]
          + st["launches"]["crc32c_blocks"] + cl["launches"]["crc32c_blocks"]
-         + pr["launches"]["crc32c_blocks"],
+         + pr["launches"]["crc32c_blocks"] + ac["launches"]["crc32c_blocks"],
          "launches_by_path": {"service": svc_launches["crc32c_blocks"],
                               "plugins": plugin_launches["crc32c_blocks"],
                               "reactor": rx["launches"]["crc32c_blocks"],
                               "store_path": st["launches"]["crc32c_blocks"],
                               "cluster": cl["launches"]["crc32c_blocks"],
-                              "procs": pr["launches"]["crc32c_blocks"]},
+                              "procs": pr["launches"]["crc32c_blocks"],
+                              "access": ac["launches"]["crc32c_blocks"]},
          "store_path_compare": st["k2_compare"],
          "max_abs_err": k2_err, "tolerance": 0, "ms": k2_ms, "kernel_ms": k2_ms,
          "isolated_ms": k2_iso_ms,
@@ -3737,12 +4669,14 @@ def main() -> int:
          "launches": svc_launches["gf_bitmatrix_csum"]
          + rx["launches"]["gf_bitmatrix_csum"]
          + cl["launches"]["gf_bitmatrix_csum"]
-         + pr["launches"]["gf_bitmatrix_csum"],
+         + pr["launches"]["gf_bitmatrix_csum"]
+         + ac["launches"]["gf_bitmatrix_csum"],
          "launches_by_path": {
              "service": svc_launches["gf_bitmatrix_csum"],
              "reactor": rx["launches"]["gf_bitmatrix_csum"],
              "cluster": cl["launches"]["gf_bitmatrix_csum"],
-             "procs": pr["launches"]["gf_bitmatrix_csum"]},
+             "procs": pr["launches"]["gf_bitmatrix_csum"],
+             "access": ac["launches"]["gf_bitmatrix_csum"]},
          "max_abs_err": k3_err, "tolerance": 0, "ms": k3_ms, "kernel_ms": k3_ms,
          "isolated_ms": k3_iso_ms,
          "plain_ms": k3_plain_ms, "bound_ms": k3_bound, "bound_by": k3_by,
@@ -3755,7 +4689,7 @@ def main() -> int:
             f"alone on an idle stream {kr['isolated_ms']:.4f} ms), bound {kr['bound_ms']:.4f} "
             f"ms by {kr['bound_by']} ({kr['bound_ms'] / kr['ms'] * 100:.1f}% "
             f"of it), plain {kr['plain_ms']:.3f} ms, launches on the main "
-            f"paths (phases 7, 9, 12, 13, 14 and 15) {kr['launches']}; no single PyTorch call "
+            f"paths (phases 7, 9, 12, 13, 14, 15 and 16) {kr['launches']}; no single PyTorch call "
             f"computes this function, so library_ms is null")
     report["kernels"] = kernels
     report["total_s"] = time.perf_counter() - t_start

@@ -89,3 +89,76 @@ def test_a_failed_measurement_raises(monkeypatch):
     monkeypatch.setattr(ec_benchmark, "run_bench", broken)
     with pytest.raises(RuntimeError, match="kernel failed"):
         bench_driver.stage_device("cpu")
+
+
+#: ceph_tpu/tools/bench_driver.py stage_cluster's keys, in its order
+CLUSTER_KEYS = tuple(f"cluster_{pool}_{key}" for pool in ("rep", "ec")
+                     for key in ("write_mb_s", "read_mb_s", "write_p99_ms",
+                                 "read_p99_ms")) + ("health",)
+HEALTH_KEYS = ("scope", "status", "checks", "daemon_report_ages",
+               "metric_daemons", "metric_lines")
+
+
+def _short_rados_bench(monkeypatch, seconds: float = 0.5) -> list:
+    """rados_bench._main with its phases cut from the stage's 4 s to
+    `seconds`; the namespaces it was handed."""
+    from ceph_tpu_torch.tools import rados_bench
+    seen, orig = [], rados_bench._main
+
+    async def short(args):
+        seen.append(vars(args).copy())
+        args.seconds = seconds
+        return await orig(args)
+    monkeypatch.setattr(rados_bench, "_main", short)
+    return seen
+
+
+def test_stage_cluster_keeps_the_reference_keys(monkeypatch, capsys):
+    """--stage cluster on the CPU: both rados bench pools measured on
+    the given device, and the probe's fresh vstart cluster (mgr, MDS,
+    gateway) reporting through the mgr."""
+    import signal
+
+    def expire(signum, frame):
+        raise TimeoutError("stage_cluster ran past 120 s")
+    old = signal.signal(signal.SIGALRM, expire)
+    signal.setitimer(signal.ITIMER_REAL, 120)
+    try:
+        seen = _short_rados_bench(monkeypatch)
+        assert bench_driver.main(["--stage", "cluster", "--device",
+                                  "cpu"]) == 0
+    finally:
+        signal.setitimer(signal.ITIMER_REAL, 0)
+        signal.signal(signal.SIGALRM, old)
+    lines = capsys.readouterr().out.strip().splitlines()
+    assert len(lines) == 1
+    out = json.loads(lines[0])
+    assert tuple(out) == CLUSTER_KEYS
+    for key in CLUSTER_KEYS[:-1]:
+        assert out[key] > 0, key
+    assert [(a["pool_type"], a["plugin"], a["k"], a["m"], a["device"],
+             a["seconds"]) for a in seen] == [
+        ("replicated", "jerasure", 0, 0, "cpu", 4.0),
+        ("erasure", "jerasure", 2, 2, "cpu", 4.0)]
+    health = out["health"]
+    assert tuple(health) == HEALTH_KEYS
+    assert health["status"].startswith("HEALTH_")
+    assert {"mds.a", "rgw.0", "mon.m0", "osd.0"} <= set(
+        health["metric_daemons"])
+
+
+def test_stage_cluster_probe_failure_raises(monkeypatch):
+    """The reference records a failed probe as "probe failed: ..."; the
+    port's raises, so `main` exits non-zero."""
+    from ceph_tpu_torch.tools import rados_bench, vstart
+
+    async def bench(args):
+        return {"write": {"mb_per_s": 1.0, "lat_p99_ms": 1.0},
+                "read": {"mb_per_s": 1.0, "lat_p99_ms": 1.0}}
+
+    async def broken(self):
+        raise RuntimeError("probe cluster failed to boot")
+    monkeypatch.setattr(rados_bench, "_main", bench)
+    monkeypatch.setattr(vstart.VCluster, "start", broken)
+    with pytest.raises(RuntimeError, match="probe cluster failed"):
+        bench_driver.stage_cluster("cpu")

@@ -49,7 +49,17 @@ CLUSTER_COPIES = (
     "ceph_tpu_torch.utils.reactor", "ceph_tpu_torch.utils.reactor_worker",
     "ceph_tpu_torch.tools.cluster_boot", "ceph_tpu_torch.tools.rados_bench",
     "ceph_tpu_torch.mgr.history", "ceph_tpu_torch.mgr.exporter",
-    "ceph_tpu_torch.mgr.daemon")
+    "ceph_tpu_torch.mgr.daemon",
+    # the access layers, vstart and the operator tools
+    "ceph_tpu_torch.rbd", "ceph_tpu_torch.rbd.image",
+    "ceph_tpu_torch.rgw", "ceph_tpu_torch.rgw.gateway",
+    "ceph_tpu_torch.mds", "ceph_tpu_torch.mds.daemon",
+    "ceph_tpu_torch.mds.client", "ceph_tpu_torch.tools.vstart",
+    "ceph_tpu_torch.tools.rados_cli", "ceph_tpu_torch.tools.rbd_cli",
+    "ceph_tpu_torch.tools.cephfs_shell", "ceph_tpu_torch.tools.crushtool",
+    "ceph_tpu_torch.tools.monmaptool", "ceph_tpu_torch.tools.osdmaptool",
+    "ceph_tpu_torch.tools.objectstore_tool",
+    "ceph_tpu_torch.tools.cephadm")
 
 #: the device seams, where a copy may differ from the reference: module
 #: -> (functions, imports the copy adds)
@@ -69,9 +79,17 @@ SEAMS = {
          "_Worker._scrub", "_Worker._pinned_bytes"}, set()),
     # the OSDs' device, the parent's kernel build, DeviceUnavailable
     "ceph_tpu_torch.tools.cluster_boot": (
-        {"ephemeral_cluster"},
+        {"ephemeral_cluster", "boot_worker_osd"},
         {"from ceph_tpu_torch.device import DeviceUnavailable"}),
     "ceph_tpu_torch.tools.rados_bench": ({"_main", "main"}, set()),
+    # the OSDs' device (in-process and in workers), the smoke's EC
+    # profile and its --device
+    "ceph_tpu_torch.tools.vstart": (
+        {"VCluster.__init__", "VCluster.start_osd", "smoke", "main"},
+        set()),
+    # the OSD spec's device
+    "ceph_tpu_torch.tools.cephadm": ({"CephadmCluster.daemon_start"},
+                                     set()),
 }
 
 
@@ -136,9 +154,9 @@ def test_copy_is_the_reference_but_for_names_and_seams(name):
     assert differ == seam_fns
 
 
-def test_mgr_exports_only_the_client():
-    """The port's mgr exports what the reference's does (the client
-    alone until the daemon, the exporter and the history were ported)."""
+def test_mgr_exports_what_the_reference_exports():
+    """The port's mgr exports the same names as the reference's, each
+    defined in the port."""
     from ceph_tpu import mgr as ref_mgr
     from ceph_tpu_torch import mgr
     assert mgr.__all__ == ref_mgr.__all__
@@ -280,6 +298,39 @@ def _cluster():
     return asyncio.run(asyncio.wait_for(boot(), 30))
 
 
+def _vcluster():
+    import asyncio
+    import tempfile
+
+    from ceph_tpu_torch.tools.vstart import VCluster
+
+    async def boot():
+        with tempfile.TemporaryDirectory(prefix="iso-vstart-") as base:
+            c = VCluster(base, n_osds=1)
+            try:
+                await c.start()
+            finally:
+                await c.stop()
+    return asyncio.run(asyncio.wait_for(boot(), 30))
+
+
+def _cephadm():
+    import asyncio
+    import tempfile
+
+    from ceph_tpu_torch.tools.cephadm import CephadmCluster
+
+    async def boot():
+        with tempfile.TemporaryDirectory(prefix="iso-cephadm-") as base:
+            c = CephadmCluster(base)
+            try:
+                await c.apply({"mon": {"count": 1},
+                               "osd": {"count": 1, "backend": "memstore"}})
+            finally:
+                await c.stop()
+    return asyncio.run(asyncio.wait_for(boot(), 30))
+
+
 def _entry_points():
     from ceph_tpu_torch import device
     from ceph_tpu_torch.parallel import mesh
@@ -320,6 +371,9 @@ def _entry_points():
         "ephemeral_cluster": _cluster,
         "bench_driver cluster_tpu": lambda: bench_driver.stage_cluster_tpu(),
         "bench_driver attribution": lambda: bench_driver.stage_attribution(),
+        "bench_driver cluster": lambda: bench_driver.stage_cluster(),
+        "VCluster.start": _vcluster,
+        "cephadm apply": _cephadm,
         "make_mesh": lambda: mesh.make_mesh(),
         "mesh_storage_impl": lambda: mesh.mesh_storage_impl(
             mesh.make_mesh(), 4, 2),

@@ -130,9 +130,15 @@ CASES = [
 
 @pytest.fixture(autouse=True)
 def _guards(monkeypatch):
-    """tests/test_cluster.py's fast timers on the port's classes, a hard
-    timeout that fires even in a loop that never yields, and the port's
-    own leak gates (tests/conftest.py gates the reference's modules)."""
+    """tests/test_cluster.py's fast timers on the port's classes, the
+    offload service's defaults kept, a hard timeout that fires even in a
+    loop that never yields, and the port's own leak gates
+    (tests/conftest.py gates the reference's modules)."""
+    from ceph_tpu_torch.offload import service
+    # a daemon's `config set ec_offload_*` (test_offload's cases) rewrites
+    # the module-wide defaults: a copy for the test, so no later test in
+    # this process sees them changed
+    monkeypatch.setattr(service, "_DEFAULTS", dict(service._DEFAULTS))
     monkeypatch.setattr(Paxos, "ELECTION_TIMEOUT", 0.15)
     monkeypatch.setattr(Paxos, "LEASE_INTERVAL", 0.2)
     monkeypatch.setattr(Paxos, "LEASE_TIMEOUT", 1.0)
