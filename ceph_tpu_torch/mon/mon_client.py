@@ -162,9 +162,14 @@ class MonClient(Dispatcher):
             {"osd": osd, "addr": list(addr),
              "crush_location": crush_location or {}, "weight": weight}))
 
-    async def report_failure(self, failed: int, reporter: int) -> None:
+    async def report_failure(self, failed: int, reporter: int, epoch: int,
+                             addr) -> None:
+        """Report osd `failed` down; `epoch` is the reporter's map epoch
+        and `addr` the address that map gives `failed`, so that the mon
+        can drop a report about an older incarnation."""
         conn = await self._ensure_conn()
-        conn.send_message(MOSDFailure({"failed": failed, "from": reporter}))
+        conn.send_message(MOSDFailure({"failed": failed, "from": reporter,
+                                       "epoch": epoch, "addr": list(addr)}))
 
     _LOG_LEVELS = ("WRN", "ERR")
 

